@@ -13,6 +13,13 @@ is imported here. Converted:
   ``weights``, and ``Camera``'s matrices, fov and size.
 
 ``to_numpy`` maps any of the port's trees back to numpy (bit-exact).
+
+Gradients and optimizer state: the port trains the LoRA leaves of each
+material as a flat list in module order (``layers[0].lora_a``,
+``layers[0].lora_b``, ..., ``final.lora_b``). ``lora_leaves`` reads the
+same list from a JAX-form tree (params, a gradient tree, or RAdam's
+``mu``/``nu``), and ``radam_state_to_numpy`` /
+``radam_state_from_numpy`` move the port's RAdam state.
 """
 from __future__ import annotations
 
@@ -22,9 +29,11 @@ import numpy as np
 import torch
 
 from .core.types import MPMConstants, ParticleState, Statics
+from .nn.mlp import LORA_LEAVES
 from .render.binding import BindingTable
 from .render.camera import Camera
 from .render.gaussians import GaussianPack
+from .train.optim import RAdamState
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -110,3 +119,18 @@ def camera_from_numpy(c, device="cpu") -> Camera:
         znear=float(c.znear),
         zfar=float(c.zfar),
     )
+
+
+def lora_leaves(tree) -> list:
+    """The LoRA leaves of an MLP-form tree, in the port's module order."""
+    layers = list(tree["layers"]) + [tree["final"]]
+    return [layer[k] for layer in layers for k in LORA_LEAVES if k in layer]
+
+
+def radam_state_to_numpy(state: RAdamState) -> dict:
+    return {"count": state.count, "mu": to_numpy(state.mu), "nu": to_numpy(state.nu)}
+
+
+def radam_state_from_numpy(count, mu, nu, device="cpu") -> RAdamState:
+    conv = lambda xs: [None if x is None else _t(x, device) for x in xs]
+    return RAdamState(int(count), conv(mu), conv(nu))

@@ -8,8 +8,9 @@ the library is loaded with ``ctypes``. The hash covers the sources and
 the flags, so an edited source rebuilds. Nothing here runs at import
 time: the CPU tests import every module and never build.
 
-``launches`` counts kernel launches by name; each wrapper adds one where
-it launches its kernel and nowhere else.
+``launches`` counts kernel launches by name (``p2g`` K1, ``g2p`` K2,
+``g2p_derivs`` K3, ``composite`` K4, ``composite_bwd`` K5); each wrapper
+adds one where it launches its kernel and nowhere else.
 """
 from __future__ import annotations
 
@@ -40,8 +41,12 @@ _SIGNATURES = {
     "neuma_p2g_fwd": [P, P, I, I, P, P, P],
     # payload, slabs, c2b, rows, chunk, dx, out, stream
     "neuma_g2p_gather": [P, P, P, I, I, F, P, P],
+    # payload, slabs, c2b, rows, chunk, dx, inv_dx, out, stream
+    "neuma_g2p_gather_derivs": [P, P, P, I, I, F, F, P, P],
     # pair_feats, tile_start, counts, num_tiles, tiles_x, T, C, last, stream
     "neuma_composite_fwd": [P, P, P, I, I, P, P, P, P],
+    # pair_feats, tile_start, counts, num_tiles, tiles_x, T, last, dT, dC, out, stream
+    "neuma_composite_bwd": [P, P, P, I, I, P, P, P, P, P, P],
 }
 
 

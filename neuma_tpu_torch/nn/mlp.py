@@ -9,6 +9,9 @@ and ``lora_scale``), so ``interop.py`` moves them across leaf by leaf.
 
 * GELU is the exact (erf) form, as ``torch.nn.GELU`` and the JAX package.
 * The LoRA term is ``(x @ A) @ B * scale``.
+* Only ``lora_a`` / ``lora_b`` are trainable (``lora_mask``, the
+  reference's ``mark_only_lora_as_trainable``): ``MLP`` registers every
+  other leaf with ``requires_grad=False`` and ``lora_scale`` as a buffer.
 * Random init draws from an explicit ``torch.Generator`` on the CPU
   (where the JAX package takes a ``PRNGKey``) and then moves to
   ``device``; the two packages give different numbers from one seed.
@@ -176,8 +179,21 @@ def add_lora_to_mlp(
     }
 
 
+LORA_LEAVES = ("lora_a", "lora_b")
+
+
+def lora_mask(params: Params) -> Params:
+    """Boolean tree of ``params``' form: True only for the ``lora_a`` /
+    ``lora_b`` leaves."""
+    return {
+        "layers": [{k: k in LORA_LEAVES for k in p} for p in params["layers"]],
+        "final": {k: k in LORA_LEAVES for k in params["final"]},
+    }
+
+
 class _Linear(nn.Module):
-    """One linear's leaves: ``lora_scale`` is a buffer, the rest parameters."""
+    """One linear's leaves: ``lora_scale`` is a buffer, the rest parameters,
+    of which only the LoRA leaves require grad."""
 
     def __init__(self, p: Params):
         super().__init__()
@@ -186,7 +202,7 @@ class _Linear(nn.Module):
             if k == "lora_scale":
                 self.register_buffer(k, v)
             else:
-                self.register_parameter(k, nn.Parameter(v))
+                self.register_parameter(k, nn.Parameter(v, requires_grad=k in LORA_LEAVES))
 
     def tree(self) -> Params:
         return {k: getattr(self, k) for k in self.names}

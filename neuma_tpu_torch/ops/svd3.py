@@ -1,4 +1,4 @@
-"""Batched signed 3x3 SVD, forward only.
+"""Batched signed 3x3 SVD with the closed-form backward.
 
 Counterpart of ``neuma_tpu/ops/svd3.py`` (``svd3c`` / ``svd3``). The
 same scalarized one-sided Jacobi runs on nine (N,) component tensors
@@ -6,7 +6,10 @@ with a fixed sweep count, so the factors match the JAX package's: the
 singular values are sorted by magnitude, descending, and ``det(U) > 0``,
 ``det(V) > 0`` are enforced by flipping the third column and the sign of
 ``sigma[2]``. ``torch.linalg.svd`` follows other conventions and is not
-used. The custom backward comes with the training slice.
+used. ``svd3c`` is a ``torch.autograd.Function`` whose backward is the
+JAX package's closed-form adjoint (``_svd3c_bwd``), with the
+``F_ij = sign(diff) / max(|diff|, 1e-10)`` clamp for near-equal singular
+values; autograd through the Jacobi sweeps would give other values there.
 """
 from __future__ import annotations
 
@@ -102,14 +105,72 @@ def _svd3_core(b, sweeps: int = _JACOBI_SWEEPS):
     return u, sig, v
 
 
-def svd3c(F9: Sequence[torch.Tensor]) -> Tuple[tuple, tuple, tuple]:
-    """Component form: ``F9[3r+c] = A[..., r, c]`` -> ``(u9, s3, vh9)``
-    row-major tuples with ``u9[3r+c] = U[r,c]``, ``vh9[3i+j] = Vh[i,j]``."""
+def _svd3c_fwd_impl(F9):
     b = [[F9[3 * r + c] for r in range(3)] for c in range(3)]
     u, sig, v = _svd3_core(b)
     u9 = tuple(u[c][r] for r in range(3) for c in range(3))
     vh9 = tuple(v[i][j] for i in range(3) for j in range(3))
     return u9, tuple(sig), vh9
+
+
+def _svd3c_bwd(u9, s3, vh9, du9, ds3, dvh9):
+    """Closed-form adjoint; ``None`` cotangents count as zero."""
+    zero = torch.zeros_like(s3[0])
+    du = [d if d is not None else zero for d in du9]
+    dvh = [d if d is not None else zero for d in dvh9]
+    ds = [d if d is not None else zero for d in ds3]
+    s2 = [s * s for s in s3]
+
+    def Fm(i, j):
+        diff = s2[j] - s2[i]
+        return torch.sign(diff) / torch.clamp(torch.abs(diff), min=1e-10)
+
+    # UtdU[i][j] = sum_r U[r,i] dU[r,j];  VtdV[i][j] = sum_r Vh[i,r] dVh[j,r]
+    UtdU = [[sum(u9[3 * r + i] * du[3 * r + j] for r in range(3)) for j in range(3)]
+            for i in range(3)]
+    VtdV = [[sum(vh9[3 * i + r] * dvh[3 * j + r] for r in range(3)) for j in range(3)]
+            for i in range(3)]
+    inner = [[None] * 3 for _ in range(3)]
+    for i in range(3):
+        for j in range(3):
+            if i == j:
+                inner[i][j] = ds[i]
+            else:
+                f = Fm(i, j)
+                J = f * (UtdU[i][j] - UtdU[j][i])
+                K = f * (VtdV[i][j] - VtdV[j][i])
+                inner[i][j] = J * s3[j] + s3[i] * K
+    # dA[r, c] = sum_{i,j} U[r,i] inner[i][j] Vh[j,c]
+    dA9 = []
+    for r in range(3):
+        for c in range(3):
+            acc = zero
+            for i in range(3):
+                for j in range(3):
+                    acc = acc + u9[3 * r + i] * inner[i][j] * vh9[3 * j + c]
+            dA9.append(acc)
+    return tuple(dA9)
+
+
+class _Svd3c(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *F9):
+        u9, s3, vh9 = _svd3c_fwd_impl(F9)
+        ctx.save_for_backward(*u9, *s3, *vh9)
+        return (*u9, *s3, *vh9)
+
+    @staticmethod
+    def backward(ctx, *cots):
+        saved = ctx.saved_tensors
+        return _svd3c_bwd(saved[:9], saved[9:12], saved[12:], cots[:9], cots[9:12], cots[12:])
+
+
+def svd3c(F9: Sequence[torch.Tensor]) -> Tuple[tuple, tuple, tuple]:
+    """Component form: ``F9[3r+c] = A[..., r, c]`` -> ``(u9, s3, vh9)``
+    row-major tuples with ``u9[3r+c] = U[r,c]``, ``vh9[3i+j] = Vh[i,j]``.
+    Differentiable through the closed-form adjoint."""
+    out = _Svd3c.apply(*F9)
+    return tuple(out[:9]), tuple(out[9:12]), tuple(out[12:])
 
 
 def unpack33(A: torch.Tensor) -> tuple:

@@ -4,8 +4,17 @@ Counterpart of ``neuma_tpu/render/binding.py`` (``BindingTable``,
 ``mahalanobis_field``, ``compute_binding_table``, ``apply_binding_xyz``,
 ``apply_binding_F``, ``deform_cov_by_F``): a dense (K, M) index/weight
 table from the chunked Mahalanobis field, applied by gathers and a
-weighted sum. This slice is forward only, so the JAX package's
-stop-gradients have no counterpart yet.
+weighted sum. The JAX package's stop-gradients are kept: the previous
+positions and Gaussian centres of ``apply_binding_xyz`` and both inputs
+of ``deform_cov_by_F`` are detached, so the one live gradient path is
+``p_curr -> means3d``.
+
+That gather's transpose sums many Gaussians into one particle. It runs
+through an inverse table (``BindingTable.with_inverse``): for each
+particle, the flat (kernel, slot) positions that name it with a nonzero
+weight, padded to the largest fan-in, summed in that fixed order. No
+atomics, so the gradient repeats bit for bit on the card. Zero-weight
+slots are left out: they add exactly 0 to a finite cotangent.
 
 ``torch.topk`` orders ties among the +inf (rejected) stats differently
 from ``jax.lax.top_k``; those slots carry weight 0, so the table's
@@ -14,6 +23,7 @@ action is the same.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -34,13 +44,52 @@ def _chi2_ppf_3(confidence: float) -> float:
 class BindingTable:
     indices: torch.Tensor  # (K, M) int64
     weights: torch.Tensor  # (K, M) float32, rows sum to 1 (or 0 if unbound)
+    # (N, fan) flat positions into (K*M,) per particle, K*M as padding
+    inverse: Optional[torch.Tensor] = None
 
     @property
     def num_kernels(self) -> int:
         return self.indices.shape[0]
 
     def to(self, device) -> "BindingTable":
-        return BindingTable(self.indices.to(device), self.weights.to(device))
+        inv = None if self.inverse is None else self.inverse.to(device)
+        return BindingTable(self.indices.to(device), self.weights.to(device), inv)
+
+    def with_inverse(self, n_particles: int) -> "BindingTable":
+        """The table with its inverse for ``n_particles`` particles."""
+        if self.inverse is not None and self.inverse.shape[0] == n_particles:
+            return self
+        return dataclasses.replace(self, inverse=_inverse_table(self, n_particles))
+
+
+def _inverse_table(table: BindingTable, n: int) -> torch.Tensor:
+    flat = table.indices.reshape(-1)
+    pos = torch.nonzero(table.weights.reshape(-1) != 0).reshape(-1)
+    part = flat[pos]
+    order = torch.argsort(part, stable=True)
+    part, pos = part[order], pos[order]
+    counts = torch.bincount(part, minlength=n)
+    first = torch.cumsum(counts, 0) - counts
+    fan = max(int(counts.max()), 1) if part.numel() else 1
+    inv = torch.full((n, fan), flat.numel(), dtype=torch.int64, device=flat.device)
+    inv[part, torch.arange(part.numel(), device=flat.device) - first[part]] = pos
+    return inv
+
+
+class _BindingGather(torch.autograd.Function):
+    """sum_m w[k, m] d[idx[k, m]] with the inverse-table transpose."""
+
+    @staticmethod
+    def forward(ctx, d, indices, weights, inverse):
+        ctx.save_for_backward(weights, inverse)
+        return torch.einsum("km,kmc->kc", weights, d[indices])
+
+    @staticmethod
+    def backward(ctx, g):
+        weights, inverse = ctx.saved_tensors
+        contrib = (weights[:, :, None] * g[:, None, :]).reshape(-1, g.shape[1])
+        pad = torch.zeros((1, g.shape[1]), dtype=g.dtype, device=g.device)
+        return torch.cat([contrib, pad])[inverse].sum(1), None, None, None
 
 
 def mahalanobis_field(means, inv_covs, particles) -> torch.Tensor:
@@ -84,9 +133,15 @@ def compute_binding_table(
 
 
 def apply_binding_xyz(table: BindingTable, p_curr, p_prev, k_prev) -> torch.Tensor:
-    """Incremental kernel advection: k_prev + B @ (p_curr - p_prev)."""
-    gathered = (p_curr - p_prev)[table.indices]  # (K, M, 3)
-    return k_prev + torch.einsum("km,kmc->kc", table.weights, gathered)
+    """Incremental kernel advection: k_prev + B @ (p_curr - p_prev), with
+    ``p_prev`` and ``k_prev`` detached (reference stop-gradients)."""
+    d = p_curr - p_prev.detach()
+    if d.requires_grad:
+        table = table.with_inverse(d.shape[0])
+        moved = _BindingGather.apply(d, table.indices, table.weights, table.inverse)
+    else:
+        moved = torch.einsum("km,kmc->kc", table.weights, d[table.indices])
+    return k_prev.detach() + moved
 
 
 def apply_binding_F(table: BindingTable, deform_grad: torch.Tensor) -> torch.Tensor:
@@ -95,7 +150,10 @@ def apply_binding_F(table: BindingTable, deform_grad: torch.Tensor) -> torch.Ten
     return torch.einsum("km,kmc->kc", table.weights, gathered).reshape(-1, 3, 3)
 
 
-def deform_cov_by_F(cov3d: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
-    """Sigma' = F Sigma F^T, symmetrized and packed to 6."""
+def deform_cov_by_F(cov3d: torch.Tensor, F: torch.Tensor, stop_gradient: bool = True) -> torch.Tensor:
+    """Sigma' = F Sigma F^T, symmetrized and packed to 6; with
+    ``stop_gradient`` (the reference's default) both inputs are detached."""
+    if stop_gradient:
+        cov3d, F = cov3d.detach(), F.detach()
     out = F @ unstrip_symmetric(cov3d) @ F.transpose(-1, -2)
     return strip_symmetric(0.5 * (out + out.transpose(-1, -2)))

@@ -1,13 +1,21 @@
-"""Tile-based 3D Gaussian splatting rasterizer, kernel backend, forward.
+"""Tile-based 3D Gaussian splatting rasterizer, kernel backend.
 
 Counterpart of ``neuma_tpu/render/rasterize.py``: ``RasterConfig``,
 ``_project`` (EWA projection with the 1.3x tan-fov clamp and the +0.3
-low-pass), ``_sh_colors``, ``_tile_ranges``, ``_build_aligned_pairs``
-and the kernel branch of ``rasterize_with_aux``. Pairs are binned by one
-stable sort by tile id over depth-ordered pairs (the JAX package states
-that counting and sorting give identical tile lists), each tile range is
-padded to a multiple of ``CHUNK`` = 32, and the composite runs in K4
-(``raster_kernel.composite_fwd``).
+low-pass), ``_sh_colors``, ``_tile_ranges``, ``_build_aligned_pairs``,
+the pair-feature gather ``_gather_pair_feats`` and the kernel branch of
+``rasterize_with_aux``. Pairs are binned by one stable sort by tile id
+over depth-ordered pairs (the JAX package states that counting and
+sorting give identical tile lists), each tile range is padded to a
+multiple of ``CHUNK`` = 32, and the composite runs in K4 forward and K5
+backward (``raster_kernel.composite_pairs``).
+
+The transpose of the pair-feature gather (many pairs per Gaussian) is
+the JAX package's scatter-free ``pair_grad='segsum'`` reduction: the pair
+cotangents are gathered back into the depth-sorted pre-binned order,
+where each Gaussian's pairs form one contiguous run, each run is summed
+by a segmented doubling in a fixed order, and the depth sort is undone
+by a gather. No atomics, so the gradient repeats bit for bit on the card.
 
 Every ``argsort``/``sort`` passes ``stable=True``: ties (invisible
 Gaussians at +inf depth, equal tile ids) must keep index order, or
@@ -22,7 +30,7 @@ import torch
 
 from ..ops.sh import sh_basis
 from .camera import Camera
-from .raster_kernel import CHUNK, PIX, composite_fwd
+from .raster_kernel import CHUNK, PIX, composite_pairs
 
 TILE = 16
 
@@ -130,11 +138,17 @@ def _tile_ranges(mean2d, radius, width: int, height: int):
     return x0, y0, x1, y1, tiles_x, tiles_y
 
 
-def _build_aligned_pairs(depth, visible, mean2d, radius, width, height, cfg: RasterConfig):
+def _build_aligned_pairs(
+    depth, visible, mean2d, radius, width, height, cfg: RasterConfig, with_glue: bool = False
+):
     """Per-tile contiguous pair ranges in depth order, each padded to a
     multiple of CHUNK. Returns (pair_gid (P,), counts (T,), tile_start
     (T+1,), tiles_x, tiles_y, overflow) with P = max_pairs + CHUNK * T;
-    pad slots hold gaussian 0 and are masked by the true counts."""
+    pad slots hold gaussian 0 and are masked by the true counts. With
+    ``with_glue`` a seventh item carries the integer layout of the
+    gather's transpose: the final slot of each pre-binned pair (P where
+    it was dropped), its run id, each depth-sorted Gaussian's run bounds
+    and the inverse depth order."""
     if cfg.max_pairs % CHUNK:
         raise ValueError(
             f"max_pairs ({cfg.max_pairs}) must be a multiple of the kernel "
@@ -184,7 +198,51 @@ def _build_aligned_pairs(depth, visible, mean2d, radius, width, height, cfg: Ras
     pair_gid = torch.zeros(P + 1, dtype=torch.int64, device=dev)
     pair_gid[dest] = sorted_gid
     overflow = offsets[-1] > cfg.max_pairs
-    return pair_gid[:P], counts, tile_start, tiles_x, tiles_y, overflow
+    out = (pair_gid[:P], counts, tile_start, tiles_x, tiles_y, overflow)
+    if not with_glue:
+        return out
+    final_of_orig = torch.empty_like(dest)
+    final_of_orig[pair_order] = dest  # a permutation: no collisions
+    inv_order = torch.empty_like(order)
+    inv_order[order] = torch.arange(n, device=dev)
+    return out + ((final_of_orig, starts[g], starts, offsets, inv_order),)
+
+
+class _GatherPairFeats(torch.autograd.Function):
+    """``feats[pair_gid]`` whose backward is the segmented-sum transpose
+    of ``neuma_tpu/render/rasterize.py::_gather_pair_feats``. Only live
+    pair slots (below ``tile_start[-1]``) are referenced by the glue, so
+    the rows past it are dropped."""
+
+    @staticmethod
+    def forward(ctx, feats, pair_gid, glue):
+        ctx.glue = glue
+        ctx.n = feats.shape[0]
+        return feats[pair_gid]
+
+    @staticmethod
+    def backward(ctx, d_pf):
+        final_of_orig, run_id, g_starts, g_ends, inv_order = ctx.glue
+        max_pairs = final_of_orig.shape[0]
+        ch = d_pf.shape[1]
+        d_pad = torch.cat([d_pf, torch.zeros((1, ch), dtype=d_pf.dtype, device=d_pf.device)])
+        s = d_pad[final_of_orig]  # (max_pairs, ch), pre-binned order
+        # Segmented suffix doubling: s[i] becomes the tree sum of its run
+        # from i to the run's end, so s[run start] is the Gaussian's sum.
+        step = 1
+        while step < max_pairs:
+            s_shift = torch.cat([s[step:], torch.zeros((step, ch), dtype=s.dtype, device=s.device)])
+            r_shift = torch.cat([run_id[step:], torch.full((step,), -1, dtype=run_id.dtype,
+                                                           device=run_id.device)])
+            s = s + torch.where((run_id == r_shift)[:, None], s_shift, 0.0)
+            step *= 2
+        live = (g_ends > g_starts) & (g_starts < max_pairs)
+        sums = torch.where(live[:, None], s[torch.clamp(g_starts, max=max_pairs - 1)], 0.0)
+        return sums[inv_order], None, None
+
+
+def _gather_pair_feats(feats, pair_gid, glue):
+    return _GatherPairFeats.apply(feats, pair_gid, glue)
 
 
 def rasterize_with_aux(
@@ -208,12 +266,16 @@ def rasterize_with_aux(
         assert shs is not None, "need shs or colors_precomp"
         colors = _sh_colors(shs, means3d, camera.camera_center, sh_degree)
 
-    pair_gid, counts, tile_start, tiles_x, tiles_y, overflow = _build_aligned_pairs(
-        depth, visible, mean2d, radius, camera.width, camera.height, cfg
+    # The gather's transpose glue is built only when a backward may run.
+    with_glue = torch.is_grad_enabled()
+    pairs = _build_aligned_pairs(
+        depth, visible, mean2d, radius, camera.width, camera.height, cfg, with_glue=with_glue
     )
+    pair_gid, counts, tile_start, tiles_x, tiles_y, overflow = pairs[:6]
     feats = torch.cat([mean2d, conic, opacity[:, None], colors], dim=1)
-    T, Cflat, _ = composite_fwd(
-        feats[pair_gid].contiguous(),
+    pair_feats = _gather_pair_feats(feats, pair_gid, pairs[6]) if with_glue else feats[pair_gid]
+    T, Cflat = composite_pairs(
+        pair_feats.contiguous(),
         tile_start.to(torch.int32),
         counts.to(torch.int32),
         tiles_x,

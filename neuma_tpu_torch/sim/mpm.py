@@ -1,11 +1,23 @@
-"""MLS-MPM step, slab branch, forward only.
+"""MLS-MPM step, slab branch, with its direct adjoint.
 
 Counterpart of ``neuma_tpu/sim/mpm.py``: ``_p2g_terms``,
 ``grid_op_slabs`` (``noslip`` and ``freeslip``), ``_g2p_tail``,
-``_step_fwd_slab``, ``mpm_step`` and the forward of
-``make_packed_substep``. The grid lives as halo-complete per-block
-slabs from the P2G kernel (K1) through the grid op to the G2P kernel
-(K2); it never exists densely.
+``_step_fwd_slab``, ``_step_bwd_slab``, ``mpm_step``, ``mpm_step_diff``,
+``make_packed_substep`` and ``scrub_cotangents``. The grid lives as
+halo-complete per-block slabs from the P2G kernel (K1) through the grid
+op to the G2P kernel (K2); it never exists densely.
+
+The backward composes the piece adjoints explicitly, as the JAX
+package's custom VJPs do, and never runs autograd through a kernel:
+the tail vjp, K1 as the transpose of the gather, the ``grid_op_slabs``
+vjp, K3 twice (the P2G adjoint and the G2P position adjoint), the
+``_p2g_terms`` vjp, then the NaN/Inf scrub of every outgoing cotangent.
+The elementwise pieces' vjps are autograd on a recompute, as
+``jax.vjp`` is in the JAX package. ``make_packed_substep`` is one
+``torch.autograd.Function`` that saves the state, stress, slab residual,
+``new_v``/``new_C`` and the pre-plasticity F, and recomputes each
+material's forward in its backward (no MLP or SVD activations are
+kept across the rollout).
 
 The slab branch is taken whenever ``num_grids > 24``, on any device.
 The dense grid path for ``num_grids <= 24`` is ported in a later slice;
@@ -13,9 +25,10 @@ asking for it raises.
 """
 from __future__ import annotations
 
-import dataclasses
+from typing import Callable, Sequence
 
 import torch
+from torch import nn
 
 from ..core.types import MPMConstants, ParticleState, Statics
 from .p2g_kernel import (
@@ -96,7 +109,8 @@ def _g2p_tail(
     eye = torch.eye(3, dtype=state.x.dtype, device=state.x.device)
     new_F = (eye + dt * new_C) @ state.F
     clip = (statics.clip_bound * constants.dx)[:, None]
-    new_x = torch.clamp(state.x + dt * new_v, clip, 1.0 - clip)
+    # maximum then minimum, as jnp.clip: ties split the gradient alike.
+    new_x = torch.minimum(torch.maximum(state.x + dt * new_v, clip), 1.0 - clip)
     return ParticleState(
         x=torch.where(enabled, new_x, state.x),
         v=torch.where(enabled, new_v, state.v),
@@ -117,11 +131,95 @@ def _step_fwd_slab(constants, statics, state, stress, sort):
     zeros3 = torch.zeros_like(state.x)
     zeros33 = torch.zeros(state.x.shape + (3,), dtype=state.x.dtype, device=state.x.device)
     _, _, new_v, dA = gather_from_slabs(
-        constants, state.x, slabs_v, None, zeros3, zeros33, sort=sort
+        constants, state.x, slabs_v, None, zeros3, zeros33, derivs=False, sort=sort
     )
     new_C = kappa * dA
     out = _g2p_tail(constants, statics, state, new_v, new_C)
     return out, slabs_mmv, new_v, new_C
+
+
+def _scrub(t: torch.Tensor) -> torch.Tensor:
+    return torch.nan_to_num(t, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def _vjp(fn: Callable, primals: Sequence[torch.Tensor], cotangents, params=()):
+    """``jax.vjp`` by recompute: run ``fn`` on detached copies of
+    ``primals`` under autograd and pull ``cotangents`` back to them (zeros
+    where unused) and to ``params`` (None where unused). Returns
+    ``(outputs, primal_grads, param_grads)``."""
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_(True) for p in primals]
+        outs = fn(*leaves)
+        outs = tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
+        live = [(o, c) for o, c in zip(outs, cotangents)
+                if c is not None and o.requires_grad]
+        inputs = leaves + list(params)
+        grads = (
+            torch.autograd.grad([o for o, _ in live], inputs, [c for _, c in live],
+                                allow_unused=True)
+            if live else (None,) * len(inputs)
+        )
+    outs = tuple(o.detach() for o in outs)
+    n = len(leaves)
+    g_primals = [torch.zeros_like(x) if g is None else g for g, x in zip(grads[:n], leaves)]
+    return outs, g_primals, list(grads[n:])
+
+
+def _state_tuple(s: ParticleState):
+    return (s.x, s.v, s.C, s.F)
+
+
+def _step_bwd_slab(constants, statics, state, stress, sort, slabs_mmv, new_v, new_C, g):
+    """Slab-space direct adjoint of ``_step_fwd_slab`` for the output
+    cotangent ``g`` (a ``ParticleState``). Returns the scrubbed
+    ``(d_state, d_stress)``."""
+    nb = _cdiv(constants.num_grids, BLOCK)
+    nbs = (nb, nb, nb)
+
+    def tail(x, v, C, F, v_, C_):
+        return _state_tuple(_g2p_tail(constants, statics, ParticleState(x, v, C, F), v_, C_))
+
+    _, d_tail, _ = _vjp(tail, (*_state_tuple(state), new_v, new_C), _state_tuple(g))
+    d_new_v, d_new_C = d_tail[4], d_tail[5]
+
+    kappa = 4.0 * constants.inv_dx * constants.inv_dx
+    A2 = kappa * d_new_C
+    # G2P grid cotangent: K1 as the exact transpose of the slab gather
+    # (tap scatter per slab + halo merge), then the grid_op vjp.
+    d_slabs_v = p2g_slab_scatter(constants, state.x, None, d_new_v, A2, sort)
+    (slabs_v,), (d_slabs_mmv,), _ = _vjp(
+        lambda s_: grid_op_slabs(constants, s_, nbs), (slabs_mmv,), (d_slabs_v,)
+    )
+
+    # K3 twice: the P2G scatter adjoint and the G2P position adjoint.
+    mass, b, affine = _p2g_terms(constants, statics, state, stress)
+    d_x_s, dgm, db, dA = gather_from_slabs(
+        constants, state.x, d_slabs_mmv, mass, b, affine, derivs=True, sort=sort
+    )
+    d_x_g2p, _, _, _ = gather_from_slabs(
+        constants, state.x, slabs_v, None, d_new_v, A2, derivs=True, sort=sort
+    )
+
+    def prep(x, v, C, F, sr):
+        return _p2g_terms(constants, statics, ParticleState(x, v, C, F), sr)
+
+    _, d_prep, _ = _vjp(prep, (*_state_tuple(state), stress), (dgm, db, dA))
+    d_state = ParticleState(
+        x=_scrub(d_tail[0] + d_x_g2p + d_x_s + d_prep[0]),
+        v=_scrub(d_tail[1] + d_prep[1]),
+        C=_scrub(d_tail[2] + d_prep[2]),
+        F=_scrub(d_tail[3] + d_prep[3]),
+    )
+    return d_state, _scrub(d_prep[4])
+
+
+def _require_slab_grid(constants: MPMConstants) -> None:
+    if constants.num_grids <= 24:
+        raise ValueError(
+            f"num_grids={constants.num_grids}: the dense grid path "
+            "(num_grids <= 24) is ported in a later slice; this slice runs "
+            "the slab branch (num_grids > 24) only"
+        )
 
 
 def mpm_step(
@@ -133,26 +231,121 @@ def mpm_step(
 ) -> ParticleState:
     """One MPM step, p2g -> grid_op -> g2p, on the slab branch.
     ``sort`` may carry pre-built or refreshed ``StepLayouts``."""
-    if constants.num_grids <= 24:
-        raise ValueError(
-            f"num_grids={constants.num_grids}: the dense grid path "
-            "(num_grids <= 24) is ported in a later slice; this slice runs "
-            "the slab branch (num_grids > 24) only"
-        )
+    _require_slab_grid(constants)
     if sort is None:
         sort = build_step_layouts(constants, state.x)
     out, _, _, _ = _step_fwd_slab(constants, statics, state, stress, sort)
     return out
 
 
+class _MPMStepDiff(torch.autograd.Function):
+    """``mpm_step`` whose backward is ``_step_bwd_slab``."""
+
+    @staticmethod
+    def forward(ctx, constants, statics, sort, x, v, C, F, stress):
+        state = ParticleState(x, v, C, F)
+        out, slabs_mmv, new_v, new_C = _step_fwd_slab(constants, statics, state, stress, sort)
+        ctx.save_for_backward(x, v, C, F, stress, slabs_mmv, new_v, new_C)
+        ctx.step = (constants, statics, sort)
+        return _state_tuple(out)
+
+    @staticmethod
+    def backward(ctx, gx, gv, gC, gF):
+        x, v, C, F, stress, slabs_mmv, new_v, new_C = ctx.saved_tensors
+        constants, statics, sort = ctx.step
+        d_state, d_stress = _step_bwd_slab(
+            constants, statics, ParticleState(x, v, C, F), stress, sort, slabs_mmv,
+            new_v, new_C, ParticleState(gx, gv, gC, gF),
+        )
+        return (None, None, None, *_state_tuple(d_state), d_stress)
+
+
+def mpm_step_diff(
+    constants: MPMConstants,
+    statics: Statics,
+    state: ParticleState,
+    stress: torch.Tensor,
+    sort=None,
+) -> ParticleState:
+    """``mpm_step`` with the reference's backward: the direct piece
+    adjoint of ``_step_bwd_slab`` with every outgoing cotangent
+    NaN/Inf-scrubbed. ``sort`` is not differentiated."""
+    _require_slab_grid(constants)
+    if sort is None:
+        sort = build_step_layouts(constants, state.x)
+    return ParticleState(*_MPMStepDiff.apply(constants, statics, sort, *_state_tuple(state), stress))
+
+
+def trainable_params(material) -> list:
+    """The parameters of a material module that require grad (its LoRA
+    leaves); none for a plain callable."""
+    if isinstance(material, nn.Module):
+        return [p for p in material.parameters() if p.requires_grad]
+    return []
+
+
+class _PackedSubstep(torch.autograd.Function):
+    """elasticity -> slab step -> plasticity; the material parameters
+    are explicit inputs so their gradients flow."""
+
+    @staticmethod
+    def forward(ctx, step, sort, x, v, C, F, *params):
+        constants, statics, elasticity, plasticity = step
+        state = ParticleState(x, v, C, F)
+        stress = elasticity(F)
+        out, slabs_mmv, new_v, new_C = _step_fwd_slab(constants, statics, state, stress, sort)
+        f2 = out.F
+        ctx.save_for_backward(x, v, C, F, stress, slabs_mmv, new_v, new_C, f2)
+        ctx.step, ctx.sort = step, sort
+        return out.x, out.v, out.C, plasticity(f2)
+
+    @staticmethod
+    def backward(ctx, gx, gv, gC, gF):
+        x, v, C, F, stress, slabs_mmv, new_v, new_C, f2 = ctx.saved_tensors
+        constants, statics, elasticity, plasticity = ctx.step
+        e_params, p_params = trainable_params(elasticity), trainable_params(plasticity)
+        # Each material's vjp from a recompute of its forward.
+        _, (d_f2,), d_pp = _vjp(plasticity, (f2,), (gF,), p_params)
+        state = ParticleState(x, v, C, F)
+        d_s, d_stress = _step_bwd_slab(
+            constants, statics, state, stress, ctx.sort, slabs_mmv, new_v, new_C,
+            ParticleState(gx, gv, gC, d_f2),
+        )
+        _, (d_f_e,), d_pe = _vjp(elasticity, (F,), (d_stress,), e_params)
+        return (None, None, d_s.x, d_s.v, d_s.C, d_s.F + d_f_e, *d_pe, *d_pp)
+
+
 def make_packed_substep(constants: MPMConstants, statics: Statics, elasticity, plasticity):
-    """One grounding substep, forward: elasticity net -> ``mpm_step``
-    -> plasticity net. ``elasticity`` and ``plasticity`` are callables
-    on F (the material modules)."""
+    """One grounding substep (elasticity net -> slab step -> plasticity
+    net) as a single ``torch.autograd.Function``. ``elasticity`` and
+    ``plasticity`` are callables on F; where they are ``nn.Module``s,
+    their parameters that require grad are the Function's inputs."""
+    _require_slab_grid(constants)
 
     def substep(s: ParticleState, layouts) -> ParticleState:
-        stress = elasticity(s.F)
-        out = mpm_step(constants, statics, s, stress, layouts)
-        return dataclasses.replace(out, F=plasticity(out.F))
+        if layouts is None:
+            layouts = build_step_layouts(constants, s.x)
+        e_params, p_params = trainable_params(elasticity), trainable_params(plasticity)
+        step = (constants, statics, elasticity, plasticity)
+        out = _PackedSubstep.apply(step, layouts, *_state_tuple(s), *e_params, *p_params)
+        return ParticleState(*out)
 
     return substep
+
+
+class _Scrub(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *tensors):
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return tuple(None if c is None else _scrub(c) for c in cts)
+
+
+def scrub_cotangents(*tensors):
+    """Identity whose backward NaN/Inf-scrubs the cotangents: the
+    standalone form of the per-step scrub (composed steps wrap their
+    differentiable inputs)."""
+    out = _Scrub.apply(*tensors)
+    return out[0] if len(tensors) == 1 else out

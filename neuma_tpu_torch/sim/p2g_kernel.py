@@ -7,10 +7,15 @@ and packed into the same 48-column payload. Two kernels run on it:
 * K1, ``run_p2g_fwd`` (``csrc/p2g.cu``): the blocked APIC scatter, the
   port of ``_p2g_fwd_kernel`` plus the chunk -> block ``.at[c2b].add``
   of ``p2g_slab_scatter``; it returns per-block sums (NB, 4, S, S*S)
-  with channels (momentum xyz, mass), lanes ``y * S + z``.
-* K2, ``run_apic_gather`` (``csrc/g2p.cu``): the 27-tap G2P gather, the
-  port of ``_make_gather_kernel(derivs=False)``; it returns (rows, 16)
-  = dgm | db (3) | dA (9) | 0 (3).
+  with channels (momentum xyz, mass), lanes ``y * S + z``. The step
+  backward also runs it, as the transpose of the G2P gather.
+* K2, ``run_apic_gather(derivs=False)`` (``csrc/g2p.cu``): the 27-tap
+  G2P gather, the port of ``_make_gather_kernel(derivs=False)``; it
+  returns (rows, 16) = dgm | db (3) | dA (9) | 0 (3).
+* K3, ``run_apic_gather(derivs=True)`` (``csrc/g2p_bwd.cu``): the same
+  gather plus the spline-derivative position adjoint in columns 13-15,
+  the port of ``_make_gather_kernel(derivs=True)``; the step backward
+  runs it twice.
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only for
 tensors on the CPU; on CUDA tensors it launches the kernel or raises.
@@ -149,6 +154,10 @@ def build_chunk_layout(
 
 
 def build_step_layouts(constants: MPMConstants, x: torch.Tensor) -> StepLayouts:
+    """Block sort and chunk carving of ``x.detach()``: the layouts carry
+    no autograd graph, as the JAX package builds them from
+    ``stop_gradient(x)``."""
+    x = x.detach()
     sort = block_sort(constants, x)
     scatter, _, _, _ = build_chunk_layout(constants, x, CHUNK, sort)
     # GATHER_CHUNK == CHUNK: the scatter and gather carvings are one.
@@ -161,7 +170,9 @@ def refresh_step_layouts(
     """Reuse the stale sort when no particle changed block (recomputing
     only the elementwise geometry), else rebuild. A Python ``if`` on
     ``(bid == stale.sort.bid).all()`` takes the place of ``lax.cond``:
-    one host sync per substep. Returns ``(layouts, reused)``."""
+    one host sync per substep. Runs on ``x.detach()``. Returns
+    ``(layouts, reused)``."""
+    x = x.detach()
     base, fx, loc, bid, _ = _sort_geometry(constants, x)
     if bool(torch.equal(bid, stale.sort.bid)):
         sort = stale.sort._replace(base=base, fx=fx, loc=loc)
@@ -226,9 +237,24 @@ def pack_payload(
 # --------------------------------------------------------------------------
 
 
+def _block_sums(partials: torch.Tensor, c2b: torch.Tensor, NB: int) -> torch.Tensor:
+    """Chunk -> block sum over the non-decreasing ``c2b``: each block adds
+    its contiguous run of chunks in chunk order (the order of the CPU's
+    ``index_add_``), with no atomics, so it repeats bit for bit on the card."""
+    c2b = c2b.to(torch.int64)
+    M = partials.shape[0]
+    counts = torch.bincount(c2b, minlength=NB)
+    first = torch.cumsum(counts, 0) - counts
+    out = torch.zeros((NB,) + partials.shape[1:], dtype=partials.dtype, device=partials.device)
+    for r in range(int(counts.max()) if M else 0):
+        live = (r < counts).reshape((NB,) + (1,) * (partials.dim() - 1))
+        out = torch.where(live, out + partials[torch.clamp(first + r, max=M - 1)], out)
+    return out
+
+
 def run_p2g_fwd_plain(payload: torch.Tensor, c2b: torch.Tensor, NB: int) -> torch.Tensor:
     """Plain version of K1: one-hot spline rows contracted per chunk
-    (as ``_p2g_fwd_kernel`` does), then the chunk -> block sum."""
+    (as ``_p2g_fwd_kernel`` does), then the ordered chunk -> block sum."""
     M = c2b.shape[0]
     C = payload.shape[0] // M
     p = payload.reshape(M, C, _COLS)
@@ -264,8 +290,7 @@ def run_p2g_fwd_plain(payload: torch.Tensor, c2b: torch.Tensor, NB: int) -> torc
         parts.append(dott(Wx, lhs) + dott(Wix, yz * col(_AC0 + 3 * r)))
     parts.append(dott(Wx * col(_GM), yz))
     partials = torch.stack(parts, dim=1)  # (M, 4, S, S*S)
-    out = torch.zeros((NB, 4, S, S * S), dtype=payload.dtype, device=payload.device)
-    return out.index_add_(0, c2b.to(torch.int64), partials)
+    return _block_sums(partials, c2b, NB)
 
 
 def run_p2g_fwd(payload: torch.Tensor, c2b: torch.Tensor, NB: int) -> torch.Tensor:
@@ -289,16 +314,27 @@ def run_p2g_fwd(payload: torch.Tensor, c2b: torch.Tensor, NB: int) -> torch.Tens
 
 
 # --------------------------------------------------------------------------
-# K2: G2P tap gather
+# K2 / K3: G2P tap gather, without and with the spline derivatives
 # --------------------------------------------------------------------------
 
 
 def run_apic_gather_plain(
-    payload: torch.Tensor, slabs: torch.Tensor, c2b: torch.Tensor, inv_dx: float
+    payload: torch.Tensor,
+    slabs: torch.Tensor,
+    c2b: torch.Tensor,
+    inv_dx: float,
+    derivs: bool = False,
 ) -> torch.Tensor:
-    """Plain version of K2: per payload row, the 27 taps read from its
-    block's slab (ch, x, y, z), with the (t - fx) factor applied per
-    tap."""
+    """Plain version of K2 (``derivs=False``) and K3 (``derivs=True``):
+    per payload row, the 27 taps read from its block's slab (ch, x, y, z),
+    with the (t - fx) factor applied per tap. With ``derivs`` columns
+    13-15 hold the position adjoint
+
+        dx_a = inv_dx sum_o dW_a,o s_o - inv_dx sum_i a_col[i, a] db_i,
+        s_o  = u_o gm + sum_r v_r,o (b_eff_r + sum_c a_col[r, c] o_c),
+
+    with dW_a,o the tap weight whose axis-a factor is the derivative
+    column ``_WD0`` (as ``_make_gather_kernel(derivs=True)``)."""
     rows = payload.shape[0]
     M = c2b.shape[0]
     C = rows // M
@@ -324,16 +360,35 @@ def run_apic_gather_plain(
         out[:, 1 + r] = (W * vals[r]).sum(1)
         for c in range(3):
             out[:, 4 + 3 * r + c] = dxc * (Wp[c] * vals[r]).sum(1)
+    if not derivs:
+        return out
+    wd = payload[:, _WD0 : _WD0 + 9].reshape(rows, 3, 3)
+    dW = (wd[:, 0, ox] * wyo * wzo, wxo * wd[:, 1, oy] * wzo, wxo * wyo * wd[:, 2, oz])
+    gm = payload[:, _GM : _GM + 1]
+    ac = payload[:, _AC0 : _AC0 + 9].reshape(rows, 3, 3)  # a_col[r, c] = A[r, c] dx
+    off = torch.as_tensor(_OFFSETS, dtype=payload.dtype, device=dev)  # (27, 3)
+    s_o = vals[3] * gm
+    for r in range(3):
+        coef = payload[:, _BE0 + r : _BE0 + r + 1] + ac[:, r, :] @ off.T  # (rows, 27)
+        s_o = s_o + vals[r] * coef
+    for a in range(3):
+        minus = sum(ac[:, i, a] * out[:, 1 + i] for i in range(3))
+        out[:, 13 + a] = inv_dx * (dW[a] * s_o).sum(1) - inv_dx * minus
     return out
 
 
 def run_apic_gather(
-    payload: torch.Tensor, slabs: torch.Tensor, c2b: torch.Tensor, inv_dx: float
+    payload: torch.Tensor,
+    slabs: torch.Tensor,
+    c2b: torch.Tensor,
+    inv_dx: float,
+    derivs: bool = False,
 ) -> torch.Tensor:
-    """K2: payload (M*C, 48), slabs (NB, 4, S, S, S), c2b (M,) int32 ->
-    (M*C, 16). Plain version on CPU tensors."""
+    """K2 (``derivs=False``) or K3 (``derivs=True``): payload (M*C, 48),
+    slabs (NB, 4, S, S, S), c2b (M,) int32 -> (M*C, 16). Plain version on
+    CPU tensors."""
     if not payload.is_cuda:
-        return run_apic_gather_plain(payload, slabs, c2b, inv_dx)
+        return run_apic_gather_plain(payload, slabs, c2b, inv_dx, derivs)
     M = c2b.shape[0]
     rows = payload.shape[0]
     if rows % M:
@@ -344,13 +399,16 @@ def run_apic_gather(
     kernels.require(c2b, "c2b", (M,), torch.int32)
     lib = kernels.library()
     out = torch.empty((rows, _OUT_COLS), dtype=torch.float32, device=payload.device)
-    rc = lib.neuma_g2p_gather(
-        payload.data_ptr(), slabs.data_ptr(), c2b.data_ptr(), rows, rows // M,
-        1.0 / inv_dx, out.data_ptr(),
-        torch.cuda.current_stream(payload.device).cuda_stream,
-    )
-    kernels.check(rc, "neuma_g2p_gather")
-    kernels.launches["g2p"] += 1
+    stream = torch.cuda.current_stream(payload.device).cuda_stream
+    ptrs = (payload.data_ptr(), slabs.data_ptr(), c2b.data_ptr(), rows, rows // M)
+    if derivs:
+        name, count = "neuma_g2p_gather_derivs", "g2p_derivs"
+        rc = lib.neuma_g2p_gather_derivs(*ptrs, 1.0 / inv_dx, float(inv_dx), out.data_ptr(), stream)
+    else:
+        name, count = "neuma_g2p_gather", "g2p"
+        rc = lib.neuma_g2p_gather(*ptrs, 1.0 / inv_dx, out.data_ptr(), stream)
+    kernels.check(rc, name)
+    kernels.launches[count] += 1
     return out
 
 
@@ -425,16 +483,18 @@ def gather_from_slabs(
     gm: Optional[torch.Tensor],
     b: torch.Tensor,
     A: torch.Tensor,
+    derivs: bool = True,
     sort=None,
 ):
-    """Tap gather (K2, no spline derivatives) against merged slabs.
-    Returns (dx, dgm, db, dA) per particle, dx being zero."""
+    """Tap gather against merged slabs: K3 with the spline derivatives
+    (``derivs=True``, the step backward) or K2 without (the forward,
+    where dx is zero). Returns (dx, dgm, db, dA) per particle."""
     n = x.shape[0]
     NB = slabs.shape[0]
     layout, bsort = _resolve_layout(constants, x, GATHER_CHUNK, sort)
     payload = pack_payload(constants, layout, bsort.fx, bsort.loc, gm, b, A)
     out = run_apic_gather(
-        payload, slabs.reshape(NB, 4, S, S, S), layout.c2b, float(constants.inv_dx)
+        payload, slabs.reshape(NB, 4, S, S, S), layout.c2b, float(constants.inv_dx), derivs
     )
     res = out[layout.dest]
     dgm = res[:, 0] if gm is not None else None

@@ -1,13 +1,24 @@
-"""Stage-2 grounding rollout loss, forward only.
+"""Grounding rollout loss and the two training stages.
 
-Counterpart of ``neuma_tpu/train/grounding.py`` (``GroundingScene`` and
-``make_rollout_loss`` for ``grid_mode="replicated"``). Per frame:
-``substeps`` x (elasticity MLP -> slab MPM step -> plasticity MLP),
-then binding, then one Particle-GS render per view (the unrolled
-per-view loop the JAX package runs for up to 8 views without a mesh),
-then the pixel loss weighted by ``frame_weights``. The frame ``scan``
-is a Python loop and the whole forward runs under ``torch.no_grad()``.
-The material weights live in the scene's material modules.
+Counterpart of ``neuma_tpu/train/grounding.py`` (``GroundingScene``,
+``_remat_policy``, ``make_rollout_loss`` for ``grid_mode="replicated"``,
+``rollout_decay_weights``, ``decay_rate_for_epoch``, the error classes,
+``optimize_init_velocity`` and ``finetune_constitutive``). Per frame:
+``substeps`` x (elasticity MLP -> slab MPM step -> plasticity MLP, one
+``make_packed_substep`` Function), then binding, then one Particle-GS
+render per view (the unrolled per-view loop the JAX package runs for up
+to 8 views without a mesh), then the pixel loss weighted by
+``frame_weights``. The frame ``scan`` is a Python loop. The loss is
+differentiable with respect to ``init_v`` and the materials' LoRA
+leaves (full BPTT); serving callers run it under ``torch.no_grad()``.
+The previous-frame references carried between frames are detached, as
+the JAX package stops their gradient. With the ``'frame'`` remat policy
+each frame runs under ``torch.utils.checkpoint`` and is recomputed in
+the backward.
+
+The material weights live in the scene's material modules; the trainers
+update their LoRA leaves in place. The ground-truth images are an
+argument of the loss and of the trainers, not part of the scene.
 
 ``build_scene`` makes the scene of ``bench.py``'s recipe (seed-0 points in
 [0.4, 0.6]^3, InvariantFull materials with LoRA, SH Gaussians on the
@@ -16,10 +27,12 @@ points, look-at cameras around the box), made with this package alone.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+import sys
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from ..core.types import MPMConstants, ParticleState, Statics
@@ -37,13 +50,17 @@ from ..render.binding import (
 )
 from ..render.camera import Camera
 from ..render.gaussians import GaussianPack, create_from_points
+from ..render.raster_kernel import CHUNK as RASTER_CHUNK
 from ..render.rasterize import RasterConfig, rasterize_with_aux
-from ..sim.mpm import make_packed_substep
+from ..sim.mpm import make_packed_substep, trainable_params
 from ..sim.p2g_kernel import build_step_layouts, refresh_step_layouts
 from ..sim.rollout import denormalize_points
 from .losses import l1_loss, l2_loss
+from .optim import apply_updates, clip_by_global_norm_strict, radam
+from .schedulers import fetch_schedule
 
 PIXEL_LOSSES = {"l1": l1_loss, "l2": l2_loss}
+_REMAT_BUDGET_BYTES = 4 << 30  # the JAX package's default remat budget
 
 
 @dataclasses.dataclass
@@ -69,6 +86,9 @@ class GroundingScene:
     raster_cfg: RasterConfig = dataclasses.field(default_factory=RasterConfig)
     exclude_frames: Sequence[int] = ()
     grid_mode: str = "replicated"
+    # 'frame' (per-frame checkpoint), 'none' (keep every substep's
+    # residuals) or 'auto' ('none' when the estimate fits the budget)
+    remat: str = "auto"
 
     def to(self, device) -> "GroundingScene":
         return dataclasses.replace(
@@ -85,12 +105,38 @@ class GroundingScene:
         )
 
 
+def _remat_policy(scene: GroundingScene, num_frames: int) -> str:
+    """Resolve ``scene.remat``: 'auto' picks 'none' when the whole
+    rollout's substep residuals fit ``_REMAT_BUDGET_BYTES`` (4 GiB), with
+    the JAX package's estimate: per substep 4 f32 grid channels +
+    114 words per particle (state, stress, G2P outputs, pre-plasticity F
+    and the layouts), per frame ~10 f32 per pair slot + 5 x 256 f32 per
+    tile for each view."""
+    if scene.remat in ("frame", "none"):
+        return scene.remat
+    if scene.remat != "auto":
+        raise ValueError(
+            f"unknown remat policy: {scene.remat!r} (expected 'frame', 'none', or 'auto')"
+        )
+    g3 = int(scene.constants.num_grids) ** 3
+    n = int(scene.init_x.shape[0])
+    per_substep = 4 * (4 * g3 + 54 * n + 60 * n)
+    cam = scene.cameras[0]
+    tiles = ((cam.width + 15) // 16) * ((cam.height + 15) // 16)
+    pair_slots = scene.raster_cfg.max_pairs + RASTER_CHUNK * tiles
+    per_frame_render = len(scene.cameras) * 4 * (10 * pair_slots + 5 * 256 * tiles)
+    total = num_frames * (scene.substeps * per_substep + per_frame_render)
+    return "none" if total <= _REMAT_BUDGET_BYTES else "frame"
+
+
 def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
     """Builds ``loss(init_v, frame_weights, gt_images) -> (loss, aux)``
     on ``device`` (``cuda`` unless given; the scene's material modules
     move there in place). ``init_v`` is (3,) or (N, 3);
     ``frame_weights`` (frames,); ``gt_images`` (frames, views, 3, H, W).
-    ``aux`` holds the device bools ``overflow`` and ``halo_overflow``."""
+    ``aux`` holds the device bools ``overflow`` and ``halo_overflow``.
+    The loss is differentiable with respect to ``init_v`` and the
+    materials' trainable (LoRA) parameters."""
     device = resolve_device(device)
     if scene.grid_mode == "halo":
         raise ValueError("grid_mode='halo' is scale-out work of a later slice")
@@ -98,15 +144,15 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         raise ValueError(f"unknown grid_mode: {scene.grid_mode!r}")
     scene = scene.to(device)
     constants = scene.constants
-    table = scene.binding
+    n_particles = scene.init_x.shape[0]
+    table = scene.binding.with_inverse(n_particles)
     pixel_loss = PIXEL_LOSSES[scene.pixel_loss]
     with torch.no_grad():
         cov0 = scene.gaussians.get_covariance(scene.scaling_modifier)
         opacity = scene.gaussians.get_opacity
         shs = scene.gaussians.get_features
     sh_degree = scene.gaussians.sh_degree
-    k_xyz0 = scene.gaussians.xyz
-    n_particles = scene.init_x.shape[0]
+    k_xyz0 = scene.gaussians.xyz.detach()
     substep = make_packed_substep(
         constants, scene.statics, scene.elasticity, scene.plasticity
     )
@@ -122,43 +168,284 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         )
         return img, aux["overflow"]
 
+    def frame_body(state, layouts, de_x_prev, g_prev, gt_frame):
+        for _ in range(scene.substeps):
+            layouts, _ = refresh_step_layouts(constants, state.x, layouts)
+            state = substep(state, layouts)
+        de_x = denormalize_points(state.x, scene.size, scene.center)
+        means3d = apply_binding_xyz(table, de_x, de_x_prev, g_prev)
+        # stop-grad covariance path (reference)
+        cov_def = deform_cov_by_F(cov0, apply_binding_F(table, state.F.detach()))
+        views = [render_one(cam, means3d, cov_def) for cam in scene.cameras]
+        imgs = torch.stack([v[0] for v in views])
+        overflow = torch.stack([v[1] for v in views]).any()
+        frame_loss = pixel_loss(imgs, gt_frame) * gt_frame.shape[0]
+        return state, layouts, de_x, means3d, frame_loss, overflow
+
     def loss_fn(init_v, frame_weights, gt_images):
         init_v = torch.as_tensor(init_v, dtype=torch.float32, device=device)
         frame_weights = torch.as_tensor(frame_weights, dtype=torch.float32, device=device)
         gt_images = torch.as_tensor(gt_images, dtype=torch.float32, device=device)
         n_frames = gt_images.shape[0]
-        with torch.no_grad():
-            v0 = init_v.reshape(-1, 3).expand(n_particles, 3).contiguous()
-            state = ParticleState.initial(scene.init_x, v0)
-            de_x_prev = denormalize_points(scene.init_x, scene.size, scene.center)
-            g_prev = k_xyz0
-            layouts = build_step_layouts(constants, scene.init_x)
-            frame_losses, overflows = [], []
-            for f in range(n_frames):
-                for _ in range(scene.substeps):
-                    layouts, _ = refresh_step_layouts(constants, state.x, layouts)
-                    state = substep(state, layouts)
-                de_x = denormalize_points(state.x, scene.size, scene.center)
-                means3d = apply_binding_xyz(table, de_x, de_x_prev, g_prev)
-                cov_def = deform_cov_by_F(cov0, apply_binding_F(table, state.F))
-                views = [render_one(cam, means3d, cov_def) for cam in scene.cameras]
-                imgs = torch.stack([v[0] for v in views])
-                overflows.append(torch.stack([v[1] for v in views]).any())
-                gt_frame = gt_images[f]
-                frame_loss = pixel_loss(imgs, gt_frame) * gt_frame.shape[0]
-                # Excluded frames add no loss and keep the previous refs.
-                if f in scene.exclude_frames:
-                    frame_losses.append(frame_weights[f] * 0.0 * frame_loss)
-                    continue
-                frame_losses.append(frame_weights[f] * 1.0 * frame_loss)
-                de_x_prev, g_prev = de_x, means3d
-            loss = torch.stack(frame_losses).sum()
-            return loss, {
-                "overflow": torch.stack(overflows).any(),
-                "halo_overflow": torch.zeros((), dtype=torch.bool, device=device),
-            }
+        remat = _remat_policy(scene, n_frames) == "frame" and torch.is_grad_enabled()
+        v0 = init_v.reshape(-1, 3).expand(n_particles, 3).contiguous()
+        state = ParticleState.initial(scene.init_x, v0)
+        de_x_prev = denormalize_points(scene.init_x, scene.size, scene.center)
+        g_prev = k_xyz0
+        layouts = build_step_layouts(constants, scene.init_x)
+        frame_losses, overflows = [], []
+        for f in range(n_frames):
+            args = (state, layouts, de_x_prev, g_prev, gt_images[f])
+            if remat:
+                out = checkpoint(frame_body, *args, use_reentrant=False)
+            else:
+                out = frame_body(*args)
+            state, layouts, de_x, means3d, frame_loss, overflow = out
+            overflows.append(overflow)
+            # Excluded frames add no loss and keep the previous refs.
+            if f in scene.exclude_frames:
+                frame_losses.append(frame_weights[f] * 0.0 * frame_loss)
+                continue
+            frame_losses.append(frame_weights[f] * 1.0 * frame_loss)
+            de_x_prev, g_prev = de_x.detach(), means3d.detach()
+        loss = torch.stack(frame_losses).sum()
+        return loss, {
+            "overflow": torch.stack(overflows).any(),
+            "halo_overflow": torch.zeros((), dtype=torch.bool, device=device),
+        }
 
     return loss_fn
+
+
+class NonFiniteGradientError(RuntimeError):
+    """A non-finite total gradient norm (the reference's
+    ``clip_grad_norm_(error_if_nonfinite=True)``)."""
+
+
+class PairBudgetOverflowError(RuntimeError):
+    """A rendered frame exceeded ``RasterConfig.max_pairs``: pairs were
+    dropped, so the image and every gradient through it are wrong. The
+    fix is a larger budget, not a smaller loss."""
+
+
+class HaloOverflowError(RuntimeError):
+    """The halo-sharded step dropped particles (a later slice runs it)."""
+
+
+def _raise_on_overflow(aux: dict, where: str) -> None:
+    """Any fired budget flag means the step just taken was wrong."""
+    if bool(aux["overflow"]):
+        raise PairBudgetOverflowError(
+            f"raster pair budget exceeded at {where}: raise "
+            f"raster.max_pairs/max_per_tile (pairs were dropped — the "
+            f"rendered image and its gradients are wrong)"
+        )
+    if bool(aux["halo_overflow"]):
+        raise HaloOverflowError(
+            f"halo shard budget exceeded at {where}: a shard bin "
+            f"overflowed or a particle's stencil escaped its slab view"
+        )
+
+
+def rollout_decay_weights(num_frames: int, decay_rate, decay_steps: int) -> torch.Tensor:
+    """weight[f] = decay_rate ** (f // decay_steps), float32."""
+    exponents = torch.as_tensor(np.arange(num_frames) // max(decay_steps, 1), dtype=torch.float32)
+    return torch.pow(torch.as_tensor(decay_rate, dtype=torch.float32), exponents)
+
+
+def decay_rate_for_epoch(cfg, epoch: int, num_epochs: int) -> float:
+    """The decay rate's linear ramp from ``decay_init`` to ``decay_final``."""
+    lam = float(cfg.get("lambda_max_decay", 0.0))
+    ratio = min((1.0 / lam) * epoch / num_epochs, 1.0) if lam > 0 else 1.0
+    d0 = float(cfg["decay_init"])
+    d1 = float(cfg["decay_final"])
+    return d0 + (d1 - d0) * ratio
+
+
+# --- Stage 1: initial velocity ---------------------------------------------
+
+
+@dataclasses.dataclass
+class VelocityStageResult:
+    init_v: np.ndarray
+    losses: List[float]
+
+
+def optimize_init_velocity(
+    scene: GroundingScene,
+    gt_images,
+    num_epochs: int,
+    lr: float,
+    schedule: Callable,
+    lambda_reg: Optional[float] = 0.005,
+    reg_all: bool = False,
+    init_v0: Optional[np.ndarray] = None,
+    log_fn: Optional[Callable] = None,
+    device=None,
+) -> VelocityStageResult:
+    """Stage 1: RAdam on the global initial velocity against the ground
+    truth, with the x/z (or full) sparsity regularizer switched on after
+    the first 10% of epochs. ``lr`` is carried for the reference's
+    signature; ``schedule`` sets the rate."""
+    device = resolve_device(device)
+    loss_fn = make_rollout_loss(scene, device=device)
+    gt = torch.as_tensor(gt_images, dtype=torch.float32, device=device)
+    weights = torch.ones(gt.shape[0], dtype=torch.float32, device=device)
+    init_v = torch.as_tensor(
+        init_v0 if init_v0 is not None else np.zeros(3), dtype=torch.float32, device=device
+    ).clone()
+    opt = radam(schedule)
+    opt_state = opt.init([init_v])
+    losses = []
+    warmup_gate = int(0.1 * num_epochs)
+    for epoch in range(1, num_epochs + 1):
+        reg_w = float(lambda_reg) if (lambda_reg is not None and epoch > warmup_gate) else 0.0
+        iv = init_v.detach().requires_grad_(True)
+        loss_rgb, aux = loss_fn(iv, weights, gt)
+        if reg_all:
+            reg = torch.mean(torch.abs(iv))
+        else:
+            ivr = iv.reshape(-1, 3)
+            reg = (torch.mean(torch.abs(ivr[:, 0])) + torch.mean(torch.abs(ivr[:, 2]))) / 2.0
+        loss = loss_rgb + reg_w * reg
+        (g,) = torch.autograd.grad(loss, [iv])
+        loss = loss.detach()
+        updates, opt_state = opt.update([g], opt_state, [init_v])
+        apply_updates([init_v], updates)
+        _raise_on_overflow(aux, f"velocity epoch {epoch}")
+        losses.append(float(loss))
+        if log_fn:
+            log_fn(epoch, float(loss), float(loss_rgb), init_v.cpu().numpy())
+    return VelocityStageResult(init_v=init_v.cpu().numpy(), losses=losses)
+
+
+# --- Stage 2: LoRA constitutive finetune ------------------------------------
+
+
+@dataclasses.dataclass
+class ConstitutiveStageResult:
+    params_e: object
+    params_p: object
+    losses: List[float]
+    grad_norms_e: List[float]
+    grad_norms_p: List[float]
+
+
+def finetune_constitutive(
+    scene: GroundingScene,
+    gt_images,
+    init_v,
+    cfg: dict,
+    checkpoint_fn: Optional[Callable] = None,
+    log_fn: Optional[Callable] = None,
+    start_epoch: int = 1,
+    train_state_path=None,
+    device=None,
+) -> ConstitutiveStageResult:
+    """Stage 2: masked RAdam on the LoRA leaves of both materials (updated
+    in place in the scene's modules) with the rollout-decay-weighted loss,
+    per-net schedules after a linear warmup, strict clipping, and the
+    ``on_nonfinite`` policy ('raise', or 'skip' up to
+    ``max_nonfinite_skips`` consecutive epochs: both nets' gradients are
+    zeroed and the optimizer state still advances). ``log_fn`` receives
+    ``(epoch, loss, e_norm, p_norm, decay, lr_e, lr_p)``;
+    ``checkpoint_fn(epoch, params_e, params_p, loss)`` runs at epoch 1,
+    every 10th and the last."""
+    if train_state_path is not None:
+        raise NotImplementedError(
+            "train_state_path: the full train-state file (train/checkpoint.py) "
+            "is ported in a later slice"
+        )
+    device = resolve_device(device)
+    num_epochs = int(cfg["num_epochs"])
+    warmup = int(cfg.get("warmup_step", 0))
+    decay_steps = int(cfg.get("decay_steps", 80))
+    e_lr = float(cfg["elasticity_lr"])
+    p_lr = float(cfg["plasticity_lr"])
+    on_nonfinite = str(cfg.get("on_nonfinite", "raise"))
+    if on_nonfinite not in ("raise", "skip"):
+        raise ValueError(
+            f"unknown on_nonfinite policy: {on_nonfinite!r} (expected 'raise' or 'skip')"
+        )
+    max_skips = int(cfg.get("max_nonfinite_skips", 30))
+
+    loss_fn = make_rollout_loss(scene, device=device)
+    gt = torch.as_tensor(gt_images, dtype=torch.float32, device=device)
+    init_v = torch.as_tensor(init_v, dtype=torch.float32, device=device)
+
+    def with_warmup(base, lr0):
+        if warmup == 0:
+            return base
+
+        def sched(count):
+            c = torch.as_tensor(count, dtype=torch.float32)
+            ramp = lr0 * (c + 1.0) / warmup
+            return torch.where(c < warmup, ramp, base(max(int(count) - warmup, 0)))
+
+        return sched
+
+    e_sched = with_warmup(fetch_schedule(cfg["elasticity_scheduler"], e_lr), e_lr)
+    p_sched = with_warmup(fetch_schedule(cfg["plasticity_scheduler"], p_lr), p_lr)
+    # The trainable leaves are the LoRA mask: every other leaf of the
+    # material modules has requires_grad=False (``nn/mlp.py``).
+    e_params, p_params = trainable_params(scene.elasticity), trainable_params(scene.plasticity)
+    e_opt = radam(e_sched, float(cfg.get("elasticity_wd", 0.0)))
+    p_opt = radam(p_sched, float(cfg.get("plasticity_wd", 0.0)))
+    e_state, p_state = e_opt.init(e_params), p_opt.init(p_params)
+    e_max_norm = float(cfg.get("elasticity_grad_max_norm", 1.0))
+    p_max_norm = float(cfg.get("plasticity_grad_max_norm", 1.0))
+
+    losses, e_norms, p_norms = [], [], []
+    consecutive_bad = 0
+    for epoch in range(start_epoch, num_epochs + 1):
+        decay_rate = decay_rate_for_epoch(cfg, epoch, num_epochs)
+        weights = rollout_decay_weights(gt.shape[0], decay_rate, decay_steps)
+        loss, aux = loss_fn(init_v, weights, gt)
+        grads = torch.autograd.grad(loss, e_params + p_params)
+        loss = loss.detach()
+        ge, e_norm, e_bad = clip_by_global_norm_strict(grads[: len(e_params)], e_max_norm)
+        gp, p_norm, p_bad = clip_by_global_norm_strict(grads[len(e_params) :], p_max_norm)
+        bad = bool(e_bad | p_bad)
+        if bad and on_nonfinite == "skip":
+            ge = [torch.zeros_like(g) for g in ge]
+            gp = [torch.zeros_like(g) for g in gp]
+        e_updates, e_state = e_opt.update(ge, e_state, e_params)
+        p_updates, p_state = p_opt.update(gp, p_state, p_params)
+        if bad:
+            consecutive_bad += 1
+            if on_nonfinite == "raise" or consecutive_bad > max_skips:
+                raise NonFiniteGradientError(
+                    f"non-finite gradient at epoch {epoch}: "
+                    f"loss={float(loss):.7f} e_norm={float(e_norm)} p_norm={float(p_norm)}"
+                    + (f" ({consecutive_bad} consecutive skipped epochs exceeded "
+                       f"max_nonfinite_skips={max_skips})" if on_nonfinite == "skip" else "")
+                )
+            print(
+                f"[grounding] non-finite gradient at epoch {epoch} "
+                f"(e_norm={float(e_norm)}, p_norm={float(p_norm)}) — "
+                f"update skipped ({consecutive_bad}/{max_skips})",
+                file=sys.stderr,
+            )
+        else:
+            consecutive_bad = 0
+        apply_updates(e_params, e_updates)
+        apply_updates(p_params, p_updates)
+        _raise_on_overflow(aux, f"constitutive epoch {epoch}")
+        losses.append(float(loss))
+        e_norms.append(float(e_norm))
+        p_norms.append(float(p_norm))
+        if log_fn:
+            log_fn(epoch, float(loss), float(e_norm), float(p_norm), decay_rate,
+                   float(e_sched(epoch - 1)), float(p_sched(epoch - 1)))
+        if checkpoint_fn and (epoch == 1 or epoch % 10 == 0 or epoch == num_epochs):
+            checkpoint_fn(epoch, scene.elasticity.params(), scene.plasticity.params(), float(loss))
+    return ConstitutiveStageResult(
+        params_e=scene.elasticity.params(),
+        params_p=scene.plasticity.params(),
+        losses=losses,
+        grad_norms_e=e_norms,
+        grad_norms_p=p_norms,
+    )
 
 
 BENCH_SHAPES = {

@@ -7,8 +7,10 @@ runs on a GPU machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 (``tests/conftest.py`` imports JAX, hence ``--noconftest`` there.)
-Bounds: K1 and K2 at a scaled 1e-5 (both sides full FP32); K4 at atol
-2e-5 on T and C with ``last`` equal.
+Bounds: K1, K2 and K3 at a scaled 1e-5 (both sides full FP32; K3 per
+output group); K4 at atol 2e-5 on T and C with ``last`` equal; K5 at a
+scaled 1e-5 per column (each pixel's partials round as the plain
+version's, the 256-pixel sums run in another order).
 """
 import numpy as np
 import pytest
@@ -87,6 +89,48 @@ def test_composite_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g,n", [(32, 3000), (70, 20000)])
+def test_g2p_derivs_kernel_matches_plain(cuda, g, n):
+    c, lay, payload = _payload(g, n, cuda, seed=3)
+    _, NB = pk._num_blocks(c)
+    slabs = torch.randn((NB, 4, 16, 16, 16), generator=torch.Generator().manual_seed(g)).to(cuda)
+    args = (payload, slabs, lay.gather.c2b, float(c.inv_dx), True)
+    out, ref = pk.run_apic_gather(*args), pk.run_apic_gather_plain(*args)
+    for cols in (slice(0, 1), slice(1, 4), slice(4, 13), slice(13, 16)):
+        assert _scaled_err(out[:, cols], ref[:, cols]) <= 1e-5, cols
+    assert torch.equal(out, pk.run_apic_gather(*args))  # bitwise repeatable
+
+
+def _composite_inputs(device, seed=2, tiles_x=5, tiles_y=3):
+    gen = torch.Generator().manual_seed(seed)
+    counts = torch.randint(0, 400, (tiles_x * tiles_y,), generator=gen)
+    aligned = (counts + rk.CHUNK - 1) // rk.CHUNK * rk.CHUNK
+    start = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(aligned, 0)])
+    P = int(start[-1]) + rk.CHUNK
+    pf = torch.rand((P, 9), generator=gen)
+    pf[:, 0] *= 16 * tiles_x
+    pf[:, 1] *= 16 * tiles_y
+    pf[:, 2:5] = torch.tensor([0.05, 0.01, 0.05]) * (0.5 + pf[:, 2:5])
+    return pf.to(device), start.to(torch.int32).to(device), counts.to(torch.int32).to(device), tiles_x
+
+
+@pytest.mark.cuda
+def test_composite_bwd_kernel_matches_plain(cuda):
+    pf, start, counts, tiles_x = _composite_inputs(cuda, seed=4)
+    T, _, last = rk.composite_fwd(pf, start, counts, tiles_x)
+    gen = torch.Generator().manual_seed(5)
+    dT = torch.randn(T.shape, generator=gen).to(cuda)
+    dC = torch.randn((T.shape[0], 768), generator=gen).to(cuda)
+    args = (pf, start, counts, T, last, dT, dC, tiles_x)
+    out, ref = rk.composite_bwd(*args), rk.composite_bwd_plain(*args)
+    end = int(start[-1])
+    assert (ref[:end] != 0).any()
+    for j in range(9):
+        assert _scaled_err(out[:end, j], ref[:end, j]) <= 1e-5, j
+    assert torch.equal(out, rk.composite_bwd(*args))  # bitwise repeatable
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     payload = torch.zeros((pk.CHUNK, 48), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="float32"):
@@ -94,3 +138,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         rk.composite_fwd(torch.zeros((32, 9), device=cuda), torch.zeros(2, dtype=torch.int64, device=cuda),
                          torch.zeros(1, dtype=torch.int32, device=cuda), 1)
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dC"):
+        rk.composite_bwd(torch.zeros((32, 9), device=cuda), i32(2), i32(1),
+                         *(torch.zeros((1, 256), device=cuda) for _ in range(3)),
+                         torch.zeros((1, 256), device=cuda), 1)

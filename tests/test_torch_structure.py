@@ -1,8 +1,8 @@
 """Structure rules of the PyTorch port: no JAX and nothing of the JAX
 package in ``neuma_tpu_torch/`` or ``chip_smoke.py``; entry points that
 refuse to run without a CUDA device unless asked for the CPU; stable
-sorts; no float atomics in the P2G kernel; each module names its JAX
-counterpart."""
+sorts; no float atomics in the kernels that sum many contributions into
+one slot; each module names its JAX counterpart."""
 import ast
 import shutil
 import subprocess
@@ -48,6 +48,13 @@ def test_p2g_kernel_has_no_float_atomics():
     assert "atomicAdd" not in src and "atomic" not in src.replace("atomics", "")
 
 
+@pytest.mark.parametrize("name", ["g2p_bwd.cu", "composite_bwd.cu"])
+def test_backward_kernels_have_no_float_atomics(name):
+    """K3 sums its taps and K5 each pair's pixels in a fixed order."""
+    src = (PORT / "csrc" / name).read_text()
+    assert "atomicAdd" not in src and "atomic" not in src.replace("atomics", "")
+
+
 def test_modules_name_their_jax_counterpart():
     for path in PORT.rglob("*.py"):
         if path.name in ("__init__.py", "kernels.py", "device.py", "interop.py"):
@@ -87,6 +94,25 @@ def test_entry_points_raise_without_cuda():
     assert torch.isfinite(loss) and set(aux) == {"overflow", "halo_overflow"}
 
 
+def test_trainers_raise_without_cuda():
+    _no_cuda()
+    from neuma_tpu_torch.train.grounding import (
+        build_scene, finetune_constitutive, optimize_init_velocity)
+    from neuma_tpu_torch.train.schedulers import cosine_decay_schedule
+
+    scene = build_scene(n_particles=300, grid=32, substeps=1, width=32, height=32, n_views=1,
+                        force_mask=True, max_pairs=1024, max_per_tile=64, layer_widths=(8,),
+                        lora_r=2, device="cpu")
+    gt = np.zeros((1, 1, 3, 32, 32), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optimize_init_velocity(scene, gt, 1, 0.01, cosine_decay_schedule(0.01, 1))
+    cfg = {"num_epochs": 1, "elasticity_lr": 0.01, "plasticity_lr": 0.01,
+           "elasticity_scheduler": {"type": "cos"}, "plasticity_scheduler": {"type": "cos"},
+           "decay_init": 1.0, "decay_final": 1.0}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune_constitutive(scene, gt, np.zeros(3), cfg)
+
+
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
     _no_cuda()
     run = lambda script: subprocess.run(
@@ -108,7 +134,15 @@ def test_cpu_wrappers_take_the_plain_versions():
     counts = torch.tensor([5, 20], dtype=torch.int32)
     for a, b in zip(rk.composite_fwd(pf, start, counts, 2), rk.composite_fwd_plain(pf, start, counts, 2)):
         assert torch.equal(a, b)
+    T, _, last = rk.composite_fwd_plain(pf, start, counts, 2)
+    dT, dC = torch.rand((2, 256), generator=gen), torch.rand((2, 768), generator=gen)
+    assert torch.equal(rk.composite_bwd(pf, start, counts, T, last, dT, dC, 2),
+                       rk.composite_bwd_plain(pf, start, counts, T, last, dT, dC, 2))
     payload = torch.zeros((2 * pk.CHUNK, 48))
     c2b = torch.zeros(2, dtype=torch.int32)
     assert torch.equal(pk.run_p2g_fwd(payload, c2b, 1), pk.run_p2g_fwd_plain(payload, c2b, 1))
     np.testing.assert_array_equal(pk.run_apic_gather(payload, torch.zeros((1, 4, 16, 16, 16)), c2b, 32.0).numpy(), 0.0)
+    payload = torch.rand((2 * pk.CHUNK, 48), generator=gen)
+    slabs = torch.rand((1, 4, 16, 16, 16), generator=gen)
+    assert torch.equal(pk.run_apic_gather(payload, slabs, c2b, 32.0, derivs=True),
+                       pk.run_apic_gather_plain(payload, slabs, c2b, 32.0, derivs=True))
