@@ -11,7 +11,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    tile composite (K4) and its backward (K5), each against its plain
    PyTorch version on the card, on inputs taken from the headline and the
    realworld scenes; each kernel, its plain version and (K1 only)
-   ``index_add_`` are timed with CUDA events.
+   ``index_add_`` are timed with CUDA events, and the device time of each
+   CUDA kernel a wrapper launches is read with torch.profiler. For K1 and
+   K5 it also prints the work they get (K1: occupied blocks and chunks
+   per block; K5: the tiles' walk lengths and the (tile, segment) work
+   items).
 3. Headline forward (10k particles, 32^3 grid, one 800x800 view, 4
    frames x 1 substep) under ``torch.no_grad()``: loss, overflow,
    ms/frame (median of 3 after a warm-up) and the forward's launch counts
@@ -70,7 +74,7 @@ FP32_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores, NVIDIA data sheet
 K12_TOL = 1e-5  # scaled max abs error: both sides full FP32
 K3_TOL = 1e-5  # scaled per output group: dx sums 27 signed spline-derivative terms
 K4_TOL = 2e-5  # abs error on T and C
-K5_TOL = 1e-5  # scaled per column: pixel partials agree, the 256-pixel sum order differs
+K5_TOL = 1e-5  # scaled per column: segment starts, approximate reciprocal, pixel-sum order
 GRAD_TOL = 1e-3  # small scene gradients, card vs CPU, scaled per leaf
 KERNELS = ("p2g", "g2p", "g2p_derivs", "composite", "composite_bwd")
 
@@ -217,6 +221,56 @@ def p2g_library_call(inp):
     return lambda: out.zero_().index_add_(0, index, vals)
 
 
+def device_rows(fn, reps: int = 10):
+    """Mean device ms per call of each kernel that ``fn`` launches
+    (torch.profiler over ``reps`` calls after a warm-up, kernel rows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us > 0:
+            rows[ev.key[:60]] = dev_us / 1e3 / reps
+    return rows
+
+
+def p2g_block_stats(inp):
+    """K1's occupancy: blocks that hold particles, chunks per such block."""
+    c2b = inp["c2b"].to(torch.int64)
+    # the carving's spare chunks (no live row) sit on the last block; skip them
+    live = inp["payload"].reshape(c2b.shape[0], -1).abs().sum(1) > 0
+    occ = torch.bincount(c2b[live], minlength=inp["NB"])
+    occ = occ[occ > 0].to(torch.float64)
+    return dict(blocks=inp["NB"], occupied_blocks=int(occ.numel()),
+                chunks_per_occupied_block_mean=float(occ.mean()),
+                chunks_per_occupied_block_max=int(occ.max()))
+
+
+def composite_walk_stats(inp, lk):
+    """K5's work: slots each tile walks (up to its largest ``last``), and
+    the (tile, segment) work items the kernel cuts them into."""
+    from neuma_tpu_torch import kernels
+
+    seg = kernels.library().neuma_k5_seg()
+    starts = inp["tile_start"][:-1].to(torch.float32)
+    walked = (lk.max(1).values - starts + 1).clamp(min=0)
+    walked = torch.minimum(walked, inp["counts"].to(torch.float32))
+    w = walked[walked > 0].to(torch.float64)
+    return dict(tiles=int(walked.numel()), tiles_with_pairs=int((inp["counts"] > 0).sum()),
+                tiles_walking=int(w.numel()), walk_mean=float(w.mean()),
+                walk_p99=float(torch.quantile(w, 0.99)), walk_max=int(w.max()),
+                walk_total=int(w.sum()), segment=seg,
+                segments=int(torch.ceil(w / seg).sum()))
+
+
 @torch.no_grad()
 def check_and_time(tag, inp, rec):
     from neuma_tpu_torch.render import raster_kernel as rk
@@ -237,6 +291,8 @@ def check_and_time(tag, inp, rec):
         ms=cuda_ms(lambda: pk.run_p2g_fwd(inp["payload"], inp["c2b"], NB), 20),
         plain_ms=cuda_ms(lambda: pk.run_p2g_fwd_plain(inp["payload"], inp["c2b"], NB), 3),
         library_ms=cuda_ms(lib1, 5), bound_ms=b1[0], bound_by=b1[1], M=M, NB=NB,
+        device_rows=device_rows(lambda: pk.run_p2g_fwd(inp["payload"], inp["c2b"], NB)),
+        work=p2g_block_stats(inp),
     )
     # K2
     args = (inp["payload_g"], inp["slabs"], inp["c2b_g"], inp["inv_dx"])
@@ -254,12 +310,13 @@ def check_and_time(tag, inp, rec):
         ms=cuda_ms(lambda: pk.run_apic_gather(*args), 20),
         plain_ms=cuda_ms(lambda: pk.run_apic_gather_plain(*args), 3),
         library_ms=None, bound_ms=b2[0], bound_by=b2[1], rows=rows,
+        device_rows=device_rows(lambda: pk.run_apic_gather(*args)),
     )
     # K3: both gathers of the step backward; each output group (dgm, db,
     # dA, dx) is scaled by its own largest value (absolute where all zero,
     # as dgm is in the second gather).
     groups = (slice(0, 1), slice(1, 4), slice(4, 13), slice(13, 16))
-    e3, ms3, plain3 = 0.0, 0.0, 0.0
+    e3, ms3, plain3, rows3 = 0.0, 0.0, 0.0, {}
     for payload, slabs in inp["k3"]:
         a3 = (payload, slabs, inp["c2b_g"], inp["inv_dx"], True)
         k = pk.run_apic_gather(*a3)
@@ -268,13 +325,15 @@ def check_and_time(tag, inp, rec):
         e3 = max(e3, scaled_err_cols(k, p, groups))
         ms3 += cuda_ms(lambda: pk.run_apic_gather(*a3), 20) / 2
         plain3 += cuda_ms(lambda: pk.run_apic_gather_plain(*a3), 3) / 2
+        for key, ms in device_rows(lambda: pk.run_apic_gather(*a3)).items():
+            rows3[key] = rows3.get(key, 0.0) + ms / 2
     ok &= e3 <= K3_TOL
     b3 = bound_ms(
         rows * 48 * 4 + inp["slabs"].numel() * 4 + M * 4 + rows * 16 * 4, inp["live"] * 27 * 71
     )
     rec["g2p_derivs"][tag] = dict(
         max_abs_err=e3, tol=K3_TOL, ms=ms3, plain_ms=plain3, library_ms=None,
-        bound_ms=b3[0], bound_by=b3[1], rows=rows,
+        bound_ms=b3[0], bound_by=b3[1], rows=rows, device_rows=rows3,
     )
     # K4
     args = (inp["pf"], inp["tile_start"], inp["counts"], inp["tiles_x"])
@@ -297,6 +356,7 @@ def check_and_time(tag, inp, rec):
         library_ms=None, bound_ms=b4[0], bound_by=b4[1], tiles=nt,
         pairs=inp["pf"].shape[0], live_pairs=int(inp["counts"].sum()),
         raster_overflow=inp["raster_overflow"], pairs_needed=inp["pairs_needed"],
+        device_rows=device_rows(lambda: rk.composite_fwd(*args)),
     )
     # K5 on K4's T and last, compared on the rows below tile_start[-1]
     a5 = (*args[:3], Tk, lk, inp["dT"], inp["dC"], inp["tiles_x"])
@@ -315,6 +375,8 @@ def check_and_time(tag, inp, rec):
         ms=cuda_ms(lambda: rk.composite_bwd(*a5), 20),
         plain_ms=cuda_ms(lambda: rk.composite_bwd_plain(*a5), 1),
         library_ms=None, bound_ms=b5[0], bound_by=b5[1], tiles=nt,
+        device_rows=device_rows(lambda: rk.composite_bwd(*a5)),
+        work=composite_walk_stats(inp, lk),
     )
     log(f"[check:{tag}] first view at rest needs {inp['pairs_needed']} (gaussian, tile) "
         f"pairs, max_pairs {inp['max_pairs']}: overflow {inp['raster_overflow']}")
@@ -327,6 +389,12 @@ def check_and_time(tag, inp, rec):
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
             + (f", index_add_ {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
         )
+    for name in KERNELS:
+        r = rec[name][tag]
+        if "work" in r:
+            log(f"[work:{tag}] {name}: {json.dumps(r['work'])}")
+        for key, ms in r["device_rows"].items():
+            log(f"[work:{tag}] {name} device {ms:.4f} ms  {key}")
     return ok
 
 
@@ -366,9 +434,7 @@ def profile_step(fn, args, top=8):
         # Device-side kernel rows only (the aten:: rows repeat their time).
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        dev_us = ev.self_device_time_total
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)

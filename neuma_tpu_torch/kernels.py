@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -37,7 +39,7 @@ _lib: Optional[ctypes.CDLL] = None
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every pointer and the stream are c_void_p).
 _SIGNATURES = {
-    # payload, c2b, M, NB, partials (scratch), out, stream
+    # payload, c2b, M, NB, scratch, out, stream
     "neuma_p2g_fwd": [P, P, I, I, P, P, P],
     # payload, slabs, c2b, rows, chunk, dx, out, stream
     "neuma_g2p_gather": [P, P, P, I, I, F, P, P],
@@ -45,8 +47,14 @@ _SIGNATURES = {
     "neuma_g2p_gather_derivs": [P, P, P, I, I, F, F, P, P],
     # pair_feats, tile_start, counts, num_tiles, tiles_x, T, C, last, stream
     "neuma_composite_fwd": [P, P, P, I, I, P, P, P, P],
-    # pair_feats, tile_start, counts, num_tiles, tiles_x, T, last, dT, dC, out, stream
-    "neuma_composite_bwd": [P, P, P, I, I, P, P, P, P, P, P],
+    # pair_feats, tile_start, counts, num_tiles, tiles_x, T, last, dT, dC, out,
+    # scratch, P, stream
+    "neuma_composite_bwd": [P, P, P, I, I, P, P, P, P, P, P, I, P],
+    # 4-byte words of the scratch each kernel needs: (M, NB) and (P, num_tiles)
+    "neuma_p2g_scratch_words": [I, I],
+    "neuma_composite_bwd_scratch_words": [I, I],
+    # slots per (tile, segment) work item of K5
+    "neuma_k5_seg": [],
 }
 
 
@@ -117,6 +125,14 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (the kernels
+    launch on it). The private getter returns the integer without building
+    a ``torch.cuda.Stream``, which the small kernels' wrappers would pay
+    for on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, name: str) -> None:

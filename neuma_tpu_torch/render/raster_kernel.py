@@ -24,9 +24,12 @@ K5 walks each tile back to front from every pixel's ``last``, rebuilds
 the exclusive transmittance by dividing the forward T by ``1 - alpha``,
 and writes one (9,) gradient row per pair slot (mean2d.xy, conic.abc,
 opacity, rgb), summed over the tile's 256 pixels; the 0.99 alpha cap is
-ignored in the chain, as in the CUDA rasterizer. Each slot belongs to
-one tile, so the rows never collide. Rows of pad slots and past
-``tile_start[-1]`` are zero.
+ignored in the chain, as in the CUDA rasterizer. The kernel cuts each
+walk into fixed-length segments that run in parallel, each started
+from per-segment transmittance and colour summaries (the algebra is in
+the kernel's note and ``tests/test_torch_composite_segments.py``). Each
+slot belongs to one tile, so the rows never collide. Rows of pad slots
+and past ``tile_start[-1]`` are zero.
 """
 from __future__ import annotations
 
@@ -111,7 +114,7 @@ def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int):
     rc = lib.neuma_composite_fwd(
         pair_feats.data_ptr(), tile_start.data_ptr(), tile_counts.data_ptr(),
         num_tiles, tiles_x, T.data_ptr(), C.data_ptr(), last.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        kernels.stream(dev),
     )
     kernels.check(rc, "neuma_composite_fwd")
     kernels.launches["composite"] += 1
@@ -194,11 +197,14 @@ def composite_bwd(pair_feats, tile_start, tile_counts, T, last, dT, dC, tiles_x:
     for name, t, w in (("T", T, PIX), ("last", last, PIX), ("dT", dT, PIX), ("dC", dC, 3 * PIX)):
         kernels.require(t, name, (num_tiles, w), torch.float32)
     lib = kernels.library()
-    out = torch.zeros((P, 9), dtype=torch.float32, device=pair_feats.device)
+    dev = pair_feats.device
+    out = torch.zeros((P, 9), dtype=torch.float32, device=dev)
+    words = lib.neuma_composite_bwd_scratch_words(P, num_tiles)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     rc = lib.neuma_composite_bwd(
         pair_feats.data_ptr(), tile_start.data_ptr(), tile_counts.data_ptr(),
         num_tiles, tiles_x, T.data_ptr(), last.data_ptr(), dT.data_ptr(), dC.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(pair_feats.device).cuda_stream,
+        out.data_ptr(), scratch.data_ptr(), P, kernels.stream(dev),
     )
     kernels.check(rc, "neuma_composite_bwd")
     kernels.launches["composite_bwd"] += 1

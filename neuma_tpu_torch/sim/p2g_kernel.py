@@ -7,8 +7,10 @@ and packed into the same 48-column payload. Two kernels run on it:
 * K1, ``run_p2g_fwd`` (``csrc/p2g.cu``): the blocked APIC scatter, the
   port of ``_p2g_fwd_kernel`` plus the chunk -> block ``.at[c2b].add``
   of ``p2g_slab_scatter``; it returns per-block sums (NB, 4, S, S*S)
-  with channels (momentum xyz, mass), lanes ``y * S + z``. The step
-  backward also runs it, as the transpose of the G2P gather.
+  with channels (momentum xyz, mass), lanes ``y * S + z``. Each chunk's
+  taps are binned by lane, and clusters of chunks sum their blocks
+  through distributed shared memory. The step backward also runs it, as
+  the transpose of the G2P gather.
 * K2, ``run_apic_gather(derivs=False)`` (``csrc/g2p.cu``): the 27-tap
   G2P gather, the port of ``_make_gather_kernel(derivs=False)``; it
   returns (rows, 16) = dgm | db (3) | dA (9) | 0 (3).
@@ -302,11 +304,12 @@ def run_p2g_fwd(payload: torch.Tensor, c2b: torch.Tensor, NB: int) -> torch.Tens
     kernels.require(payload, "payload", (M * CHUNK, _COLS), torch.float32)
     kernels.require(c2b, "c2b", (M,), torch.int32)
     lib = kernels.library()
-    partials = torch.empty((M, 4, S, S * S), dtype=torch.float32, device=payload.device)
     out = torch.empty((NB, 4, S, S * S), dtype=torch.float32, device=payload.device)
+    words = lib.neuma_p2g_scratch_words(M, NB)
+    scratch = torch.empty((words,), dtype=torch.int32, device=payload.device)
     rc = lib.neuma_p2g_fwd(
-        payload.data_ptr(), c2b.data_ptr(), M, NB, partials.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(payload.device).cuda_stream,
+        payload.data_ptr(), c2b.data_ptr(), M, NB, scratch.data_ptr(), out.data_ptr(),
+        kernels.stream(payload.device),
     )
     kernels.check(rc, "neuma_p2g_fwd")
     kernels.launches["p2g"] += 1
@@ -399,7 +402,7 @@ def run_apic_gather(
     kernels.require(c2b, "c2b", (M,), torch.int32)
     lib = kernels.library()
     out = torch.empty((rows, _OUT_COLS), dtype=torch.float32, device=payload.device)
-    stream = torch.cuda.current_stream(payload.device).cuda_stream
+    stream = kernels.stream(payload.device)
     ptrs = (payload.data_ptr(), slabs.data_ptr(), c2b.data_ptr(), rows, rows // M)
     if derivs:
         name, count = "neuma_g2p_gather_derivs", "g2p_derivs"

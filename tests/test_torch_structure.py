@@ -4,6 +4,7 @@ refuse to run without a CUDA device unless asked for the CPU; stable
 sorts; no float atomics in the kernels that sum many contributions into
 one slot; each module names its JAX counterpart."""
 import ast
+import re
 import shutil
 import subprocess
 import sys
@@ -53,6 +54,30 @@ def test_backward_kernels_have_no_float_atomics(name):
     """K3 sums its taps and K5 each pair's pixels in a fixed order."""
     src = (PORT / "csrc" / name).read_text()
     assert "atomicAdd" not in src and "atomic" not in src.replace("atomics", "")
+
+
+def _float_atomics(src):
+    """The atomic calls in a CUDA source whose target is a float: a cast to
+    float, or a name declared as a float pointer or float array."""
+    src = re.sub(r"//[^\n]*", "", src)  # code only
+    floats = set(re.findall(r"\bfloat2?\s*\*\s*(?:__restrict__\s+)?(\w+)", src)) | set(
+        re.findall(r"\bfloat2?\s+(\w+)\s*\[", src))
+    return [call.group(0) for call in re.finditer(r"\batomic\w*\s*\(([^,)]*)", src)
+            if "float" in call.group(1) or set(re.findall(r"\w+", call.group(1))) & floats]
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "csrc").glob("*.cu")), ids=lambda p: p.name)
+def test_no_float_atomics_in_any_kernel(path):
+    """No atomicAdd / atomicAdd_block / atomicCAS (or any other atomic)
+    on a float: every reduction runs in a fixed order."""
+    assert _float_atomics(path.read_text()) == [], path.name
+
+
+def test_float_atomic_detector_catches_one():
+    assert _float_atomics(
+        "__global__ void k(float* __restrict__ out, int* n) { atomicAdd(&out[0], 1.f); }")
+    assert _float_atomics("__global__ void k(float2* s) { atomicAdd_block((float*)s, 1.f); }")
+    assert not _float_atomics("__global__ void k(int* n) { atomicAdd(n, 1); }")
 
 
 def test_modules_name_their_jax_counterpart():
