@@ -12,10 +12,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    PyTorch version on the card, on inputs taken from the headline and the
    realworld scenes; each kernel, its plain version and (K1 only)
    ``index_add_`` are timed with CUDA events, and the device time of each
-   CUDA kernel a wrapper launches is read with torch.profiler. For K1 and
-   K5 it also prints the work they get (K1: occupied blocks and chunks
-   per block; K5: the tiles' walk lengths and the (tile, segment) work
-   items).
+   CUDA kernel a wrapper launches is read with torch.profiler. For K1,
+   K3, K4 and K5 it also prints the work they get (K1: occupied blocks
+   and chunks per block; K3: rows, CTAs, threads per row; K4: the tiles'
+   pair counts, the pixels that stop on the 1e-4 test, the (tile,
+   segment) items and those walked again, the scratch bytes; K5: the
+   tiles' walk lengths and the (tile, segment) work items).
 3. Headline forward (10k particles, 32^3 grid, one 800x800 view, 4
    frames x 1 substep) under ``torch.no_grad()``: loss, overflow,
    ms/frame (median of 3 after a warm-up) and the forward's launch counts
@@ -259,7 +261,7 @@ def composite_walk_stats(inp, lk):
     the (tile, segment) work items the kernel cuts them into."""
     from neuma_tpu_torch import kernels
 
-    seg = kernels.library().neuma_k5_seg()
+    seg = kernels.library().neuma_composite_seg()
     starts = inp["tile_start"][:-1].to(torch.float32)
     walked = (lk.max(1).values - starts + 1).clamp(min=0)
     walked = torch.minimum(walked, inp["counts"].to(torch.float32))
@@ -272,10 +274,67 @@ def composite_walk_stats(inp, lk):
 
 
 @torch.no_grad()
+def composite_fwd_work(inp, lk, seg):
+    """K4's work on tiles with pairs: their pair counts; the pixels that
+    stop on the 1e-4 test (a pixel stops at the first slot after its
+    ``last`` that passes the guard, since that slot would have
+    contributed); the slot where each tile's walk ends (every pixel
+    stopped, else its count); the (tile, ``seg``-slot segment) items, and
+    those that hold a stop, which the kernel's combine launch walks again."""
+    pf, counts = inp["pf"], inp["counts"].to(torch.int64)
+    nz = torch.nonzero(counts > 0).squeeze(1)
+    cnt, starts = counts[nz], inp["tile_start"][:-1].to(torch.int64)[nz]
+    lane = torch.arange(256, device=pf.device)
+    px = ((nz % inp["tiles_x"]) * 16)[:, None] + (lane % 16)[None, :]
+    py = ((nz // inp["tiles_x"]) * 16)[:, None] + (lane // 16)[None, :]
+    px, py, last = px.to(torch.float32), py.to(torch.float32), lk[nz]
+    stop = torch.full(last.shape, -1, dtype=torch.int64, device=pf.device)
+    for s in range(int(cnt.max())):
+        idx = starts + s
+        f = pf[torch.clamp(idx, max=pf.shape[0] - 1)]
+        col = lambda j: f[:, j : j + 1]
+        dx, dy = col(0) - px, col(1) - py
+        power = -0.5 * (col(2) * dx * dx + col(4) * dy * dy) - col(3) * dx * dy
+        alpha = torch.clamp(col(5) * torch.exp(power), max=0.99)
+        hit = ((s < cnt)[:, None] & (power <= 0.0) & (alpha >= 1.0 / 255.0)
+               & (idx.to(torch.float32)[:, None] > last) & (stop < 0))
+        stop = torch.where(hit, s, stop)
+    stopped = stop >= 0
+    walk_end = torch.where(stopped.all(1), stop.max(1).values + 1, cnt).to(torch.float64)
+    c = cnt.to(torch.float64)
+    seg_of_stop = torch.unique((torch.arange(nz.numel(), device=pf.device)[:, None] * 4096
+                                + stop // seg)[stopped])
+    return dict(tiles=int(counts.numel()), tiles_with_pairs=int(nz.numel()),
+                count_mean=float(c.mean()), count_p99=float(torch.quantile(c, 0.99)),
+                count_max=int(cnt.max()), walk_end_mean=float(walk_end.mean()),
+                walk_end_p99=float(torch.quantile(walk_end, 0.99)),
+                walk_end_max=int(walk_end.max()), tiles_all_stopped=int(stopped.all(1).sum()),
+                pixels_stopped=int(stopped.sum()), pixels_contributing=int((last >= 0).sum()),
+                segment=seg, items=int(((cnt + seg - 1) // seg).sum()),
+                items_with_a_stop=int(seg_of_stop.numel()))
+
+
+def g2p_derivs_work(inp, rows_per_cta, threads_per_row):
+    """K3's work: payload rows, CTAs, threads per row, and the live rows
+    per occupied block (a chunk's rows share one block's slab)."""
+    p, c2b = inp["payload_g"], inp["c2b_g"].to(torch.int64)
+    rows, M = p.shape[0], c2b.shape[0]
+    live = p[:, 0:9].abs().sum(1) > 0  # spline weights: nonzero on every live row
+    occ = torch.bincount(torch.repeat_interleave(c2b, rows // M)[live])
+    occ = occ[occ > 0].to(torch.float64)
+    return dict(rows=rows, live_rows=int(live.sum()), ctas=-(-rows // rows_per_cta),
+                threads_per_row=threads_per_row, threads_per_cta=rows_per_cta * threads_per_row,
+                occupied_blocks=int(occ.numel()), rows_per_occupied_block_mean=float(occ.mean()),
+                rows_per_occupied_block_max=int(occ.max()))
+
+
+@torch.no_grad()
 def check_and_time(tag, inp, rec):
+    from neuma_tpu_torch import kernels
     from neuma_tpu_torch.render import raster_kernel as rk
     from neuma_tpu_torch.sim import p2g_kernel as pk
 
+    lib = kernels.library()
     ok = True
     # K1
     k = pk.run_p2g_fwd(inp["payload"], inp["c2b"], inp["NB"])
@@ -334,6 +393,8 @@ def check_and_time(tag, inp, rec):
     rec["g2p_derivs"][tag] = dict(
         max_abs_err=e3, tol=K3_TOL, ms=ms3, plain_ms=plain3, library_ms=None,
         bound_ms=b3[0], bound_by=b3[1], rows=rows, device_rows=rows3,
+        work=g2p_derivs_work(inp, lib.neuma_g2p_derivs_rows_per_cta(),
+                             lib.neuma_g2p_derivs_threads_per_row()),
     )
     # K4
     args = (inp["pf"], inp["tile_start"], inp["counts"], inp["tiles_x"])
@@ -357,6 +418,8 @@ def check_and_time(tag, inp, rec):
         pairs=inp["pf"].shape[0], live_pairs=int(inp["counts"].sum()),
         raster_overflow=inp["raster_overflow"], pairs_needed=inp["pairs_needed"],
         device_rows=device_rows(lambda: rk.composite_fwd(*args)),
+        work=dict(composite_fwd_work(inp, lk, lib.neuma_composite_seg()),
+                  scratch_bytes=4 * lib.neuma_composite_fwd_scratch_words(inp["pf"].shape[0], nt)),
     )
     # K5 on K4's T and last, compared on the rows below tile_start[-1]
     a5 = (*args[:3], Tk, lk, inp["dT"], inp["dC"], inp["tiles_x"])

@@ -8,8 +8,8 @@
 // current pair) and s_dot (the sum of w * (rgb . dC) of the pairs behind it).
 // A pair contributes iff it is live, power <= 0, alpha = min(0.99, opacity *
 // exp(power)) >= 1/255 and its slot index <= the pixel's `last` -- K4's
-// decisions (csrc/composite.cu), made with the same __fmul_rn/__fadd_rn guard
-// arithmetic so they agree bit for bit. For a contributing pair:
+// decisions (csrc/composite.cu), made with the guard `visit` that both
+// include from csrc/composite_common.cuh. For a contributing pair:
 //   T_excl    = T_after / (1 - alpha)
 //   dL/dalpha = T_excl (rgb . dC) - s_dot / (1 - alpha) - T / (1 - alpha) dT
 // and the 0.99 cap is ignored in the chain (dL/dopacity = G dL/dalpha,
@@ -19,8 +19,9 @@
 // largest `last` + 1 (capped by its count), is cut into segments of SEG slots,
 // and each (tile, segment) is one work item. Four launches:
 //   1. k5_tile_end: end_t per tile (one warp per tile).
-//   2. k5_plan (one CTA): a block scan of ceil(end_t / SEG) lays out the
-//      work list tile by tile, so a tile's segments are consecutive items.
+//   2. plan_segments (one CTA, csrc/composite_common.cuh): a block scan of
+//      ceil(end_t / SEG) lays out the work list tile by tile, so a tile's
+//      segments are consecutive items.
 //   3. k5_summaries: per (item, pixel), front to back over the segment's
 //      contributing slots, P = prod (1 - alpha) and S = sum alpha T_local
 //      (rgb . dC), T_local the product so far.
@@ -53,45 +54,14 @@
 // repeats the guard and exp for the summaries (~25%).
 //
 // Scratch: one buffer the wrapper allocates at the size
-// neuma_composite_bwd_scratch_words gives (layout below). k5_plan traps if
+// neuma_composite_bwd_scratch_words gives (layout below). The plan traps if
 // the work list would not fit it, which only tile ranges that overrun the P
 // pair slots can cause.
-#include <cstdio>
-#include <cuda_runtime.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PIX = TILE * TILE;
-constexpr int WARPS = PIX / 32;
-constexpr int NF = 9;
-constexpr int SEG = 64;    // slots per work item
-constexpr int BATCH = 4;   // slots staged per reduction
-constexpr int PLAN_THREADS = 1024;
-constexpr unsigned FULL = 0xffffffffu;
-
-// K4's guard arithmetic: true iff the pair contributes (before the `last`
-// test); dx, dy, G and the capped alpha for the gradient.
-__device__ __forceinline__ bool visit(const float* f, float px, float py, float& dx, float& dy,
-                                      float& G, float& alpha) {
-  dx = __fsub_rn(f[0], px);
-  dy = __fsub_rn(f[1], py);
-  const float q = __fadd_rn(__fmul_rn(__fmul_rn(f[2], dx), dx), __fmul_rn(__fmul_rn(f[4], dy), dy));
-  const float power = __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(f[3], dx), dy));
-  if (!(power <= 0.f)) return false;
-  G = expf(power);
-  const float raw = __fmul_rn(f[5], G);
-  const float cap = (float)0.99;
-  alpha = raw > cap ? cap : raw;
-  return alpha >= (float)(1.0 / 255.0);
-}
-
-__device__ __forceinline__ float pixel_x(int t, int tiles_x, int lane) {
-  return (float)((t % tiles_x) * TILE + (lane % TILE));
-}
-__device__ __forceinline__ float pixel_y(int t, int tiles_x, int lane) {
-  return (float)((t / tiles_x) * TILE + (lane / TILE));
-}
+constexpr int BATCH = 4;  // slots staged per reduction
 
 __global__ void __launch_bounds__(PIX)
 k5_tile_end(const int* __restrict__ tile_start, const int* __restrict__ counts,
@@ -104,78 +74,6 @@ k5_tile_end(const int* __restrict__ tile_start, const int* __restrict__ counts,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
   if (lane == 0) tile_end[t] = max(0, min(counts[t], (int)m - tile_start[t] + 1));
-}
-
-__global__ void __launch_bounds__(PLAN_THREADS)
-k5_plan(const int* __restrict__ tile_end, int num_tiles, int max_items, int4* __restrict__ work,
-        int* __restrict__ total) {
-  __shared__ int wsum[PLAN_THREADS / 32];
-  const int per = (num_tiles + PLAN_THREADS - 1) / PLAN_THREADS;
-  const int t0 = min(num_tiles, (int)threadIdx.x * per);
-  const int t1 = min(num_tiles, t0 + per);
-  int local = 0;
-#pragma unroll 8
-  for (int t = t0; t < t1; ++t) local += (tile_end[t] + SEG - 1) / SEG;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = local;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) wsum[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int v = wsum[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(FULL, v, o);
-      if (lane >= o) v += u;
-    }
-    wsum[lane] = v;
-  }
-  __syncthreads();
-  if (wsum[PLAN_THREADS / 32 - 1] > max_items) {  // refuse rather than write past the list
-    if (threadIdx.x == 0)
-      printf("k5_plan: %d work items exceed the scratch's %d\n", wsum[PLAN_THREADS / 32 - 1],
-             max_items);
-    __trap();
-  }
-  int base = (warp ? wsum[warp - 1] : 0) + incl - local;
-  if (threadIdx.x == PLAN_THREADS - 1) *total = base + local;
-  for (int t = t0; t < t1; ++t) {
-    const int n = (tile_end[t] + SEG - 1) / SEG;
-    for (int k = 0; k < n; ++k) work[base + k] = make_int4(t, k, base, n);
-    base += n;
-  }
-}
-
-// Rows of pixels outside [y0, y1] fail K4's guard for the pair f:
-// alpha >= 1/255 needs opacity >= 1/255 and Q = a dx^2 + 2 b dx dy + c dy^2
-// <= 2 ln(255 opacity), hence dy^2 <= 2 ln(255 opacity) a / det. Margins
-// (0.1% + 1e-3 on the log, 0.1% + 0.01 px on the extent) cover the rounding
-// of the guard's own arithmetic, which stays bounded relative to Q only for
-// conics with det > 0.1 a c; others (and non-finite rows) are not culled.
-__device__ __forceinline__ float2 row_bounds(const float* f) {
-  const float a = f[2], b = f[3], c = f[4], op = f[5];
-  if (!(op >= (float)(1.0 / 255.0))) return make_float2(INFINITY, -INFINITY);  // none
-  const float det = a * c - b * b;
-  const float tau = logf(op * 255.f);
-  if (!(a > 0.f && c > 0.f && det > 0.1f * a * c && tau < 1e30f && f[1] == f[1]))
-    return make_float2(-INFINITY, INFINITY);  // all rows
-  const float ext = sqrtf(2.f * (tau * 1.001f + 1e-3f) * a / det) * 1.001f + 0.01f;
-  return make_float2(f[1] - ext, f[1] + ext);
-}
-
-// Stage the item's feature rows [lo, hi) and their row bounds in shared memory.
-__device__ __forceinline__ void load_rows(float* sf, float2* sy, const float* __restrict__ feats,
-                                          int first, int cnt) {
-  __syncthreads();  // the previous item's rows are consumed
-  const float* src = feats + (size_t)first * NF;
-  for (int k = threadIdx.x; k < cnt * NF; k += PIX) sf[k] = src[k];
-  __syncthreads();
-  if (threadIdx.x < cnt) sy[threadIdx.x] = row_bounds(sf + threadIdx.x * NF);
-  __syncthreads();
 }
 
 __global__ void __launch_bounds__(PIX, 4)
@@ -307,29 +205,14 @@ k5_gradients(const float* __restrict__ feats, const int* __restrict__ tile_start
   }
 }
 
-// CTAs of `kernel` that fit on the card at once (cached per kernel).
-template <typename K>
-int resident_ctas(K kernel, int* cache) {
-  if (*cache == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PIX, 0);
-    *cache = max(1, sms * per_sm);
-  }
-  return *cache;
-}
-
 // Scratch layout in 4-byte words: int4 work[items] (t, segment, first item
 // of t, segments of t) | int tile_end[num_tiles] | int item count | float2
-// summaries[items * 256], 8-byte aligned. items = P / SEG + num_tiles + 1
-// bounds sum_t ceil(end_t / SEG), since the tiles' ranges hold at most P
-// slots in all.
+// summaries[items * 256], 8-byte aligned; items = items_bound(P, num_tiles).
 struct Layout {
   size_t items, summ, words;
 };
 Layout layout(int P, int num_tiles) {
-  const size_t items = (size_t)P / SEG + num_tiles + 1;
+  const size_t items = items_bound(P, num_tiles);
   const size_t summ = (4 * items + num_tiles + 2) & ~(size_t)1;
   return {items, summ, summ + 2 * items * PIX};
 }
@@ -339,8 +222,6 @@ Layout layout(int P, int num_tiles) {
 extern "C" int neuma_composite_bwd_scratch_words(int P, int num_tiles) {
   return (int)layout(P, num_tiles).words;
 }
-
-extern "C" int neuma_k5_seg() { return SEG; }
 
 extern "C" int neuma_composite_bwd(const void* feats, const void* tile_start, const void* counts,
                                    int num_tiles, int tiles_x, const void* T, const void* last,
@@ -363,7 +244,8 @@ extern "C" int neuma_composite_bwd(const void* feats, const void* tile_start, co
 
   k5_tile_end<<<(num_tiles + WARPS - 1) / WARPS, PIX, 0, s>>>(
       ts, static_cast<const int*>(counts), lastp, num_tiles, tile_end);
-  k5_plan<<<1, PLAN_THREADS, 0, s>>>(tile_end, num_tiles, max_items, work, total);
+  plan_segments<<<1, PLAN_THREADS, 0, s>>>(tile_end, num_tiles, max_items, work, total,
+                                           nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int g1 = min(max_items, resident_ctas(k5_summaries, &ctas_summaries));

@@ -45,16 +45,20 @@ _SIGNATURES = {
     "neuma_g2p_gather": [P, P, P, I, I, F, P, P],
     # payload, slabs, c2b, rows, chunk, dx, inv_dx, out, stream
     "neuma_g2p_gather_derivs": [P, P, P, I, I, F, F, P, P],
-    # pair_feats, tile_start, counts, num_tiles, tiles_x, T, C, last, stream
-    "neuma_composite_fwd": [P, P, P, I, I, P, P, P, P],
+    # pair_feats, tile_start, counts, num_tiles, tiles_x, T, C, last, scratch, P, stream
+    "neuma_composite_fwd": [P, P, P, I, I, P, P, P, P, I, P],
     # pair_feats, tile_start, counts, num_tiles, tiles_x, T, last, dT, dC, out,
     # scratch, P, stream
     "neuma_composite_bwd": [P, P, P, I, I, P, P, P, P, P, P, I, P],
-    # 4-byte words of the scratch each kernel needs: (M, NB) and (P, num_tiles)
+    # 4-byte words of the scratch each kernel needs: (M, NB), (P, num_tiles)
     "neuma_p2g_scratch_words": [I, I],
+    "neuma_composite_fwd_scratch_words": [I, I],
     "neuma_composite_bwd_scratch_words": [I, I],
-    # slots per (tile, segment) work item of K5
-    "neuma_k5_seg": [],
+    # slots per (tile, segment) work item of K4 and K5
+    "neuma_composite_seg": [],
+    # K3's payload rows per CTA and threads per row
+    "neuma_g2p_derivs_rows_per_cta": [],
+    "neuma_g2p_derivs_threads_per_row": [],
 }
 
 

@@ -5,11 +5,15 @@ Counterpart of ``neuma_tpu/render/pallas_raster.py`` (``_fwd_kernel``
 launched by ``_composite_fwd_impl``, ``_bwd_kernel`` launched by
 ``_composite_vjp_bwd``, both under the custom VJP
 ``composite_pairs_tpu``; and ``_padded_starts``). The CUDA kernels are
-``csrc/composite.cu`` and ``csrc/composite_bwd.cu``. K4: one CTA
-per 16x16 tile, one thread per pixel, walking the tile's depth-sorted
-pair range up to its true count with the CUDA rasterizer's guard set
-(power <= 0, alpha >= 1/255, alpha capped at 0.99, the pixel stops
-before a contribution would take T below 1e-4).
+``csrc/composite.cu`` and ``csrc/composite_bwd.cu``, which share the
+guard, the row culling and the segment plan (``csrc/composite_common.cuh``).
+K4 composites each pixel front to back over its tile's depth-sorted pair
+range up to the true count with the CUDA rasterizer's guard set (power
+<= 0, alpha >= 1/255, alpha capped at 0.99, the pixel stops before a
+contribution would take T below 1e-4). The kernel cuts each range into
+fixed-length segments that run in parallel, then combines their
+transmittance products and colour sums per pixel in order, walking
+again the one segment where a pixel stops.
 
 Contract (the TPU kernel's): ``pair_feats`` (P, 9) = mean2d (2) | conic
 (3) | opacity | rgb (3); ``tile_start`` (T+1,) CHUNK-aligned range
@@ -111,10 +115,14 @@ def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int):
     T = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
     C = torch.empty((num_tiles, 3 * PIX), dtype=torch.float32, device=dev)
     last = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
+    words = lib.neuma_composite_fwd_scratch_words(P, num_tiles)
+    if words < 0:
+        raise ValueError(f"{P} pairs over {num_tiles} tiles overflow K4's scratch")
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     rc = lib.neuma_composite_fwd(
         pair_feats.data_ptr(), tile_start.data_ptr(), tile_counts.data_ptr(),
         num_tiles, tiles_x, T.data_ptr(), C.data_ptr(), last.data_ptr(),
-        kernels.stream(dev),
+        scratch.data_ptr(), P, kernels.stream(dev),
     )
     kernels.check(rc, "neuma_composite_fwd")
     kernels.launches["composite"] += 1

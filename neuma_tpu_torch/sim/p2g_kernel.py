@@ -330,7 +330,9 @@ def run_apic_gather_plain(
 ) -> torch.Tensor:
     """Plain version of K2 (``derivs=False``) and K3 (``derivs=True``):
     per payload row, the 27 taps read from its block's slab (ch, x, y, z),
-    with the (t - fx) factor applied per tap. With ``derivs`` columns
+    with the (t - fx) factor applied per tap; a tap on a line outside
+    0..S-1 reads zero (the TPU kernel's one-hot factors are zero there, and
+    the CUDA kernels skip it). With ``derivs`` columns
     13-15 hold the position adjoint
 
         dx_a = inv_dx sum_o dW_a,o s_o - inv_dx sum_i a_col[i, a] db_i,
@@ -354,8 +356,12 @@ def run_apic_gather_plain(
     wxo, wyo, wzo = w[:, 0, ox], w[:, 1, oy], w[:, 2, oz]
     W = wxo * wyo * wzo  # (rows, 27)
     Wp = (wp[:, 0, ox] * wyo * wzo, wxo * wp[:, 1, oy] * wzo, wxo * wyo * wp[:, 2, oz])
+    inside = (lines >= 0) & (lines < S)
+    inside = inside[:, 0, ox] & inside[:, 1, oy] & inside[:, 2, oz]  # (rows, 27)
+    lines = lines.clamp(0, S - 1)
     cell = (lines[:, 0, ox] * S + lines[:, 1, oy]) * S + lines[:, 2, oz]
-    vals = [flat[(blk[:, None] * 4 + ch) * S ** 3 + cell] for ch in range(4)]
+    vals = [torch.where(inside, flat[(blk[:, None] * 4 + ch) * S ** 3 + cell], 0.0)
+            for ch in range(4)]
     out = torch.zeros((rows, _OUT_COLS), dtype=payload.dtype, device=dev)
     out[:, 0] = (W * vals[3]).sum(1)
     dxc = 1.0 / inv_dx
@@ -405,6 +411,10 @@ def run_apic_gather(
     stream = kernels.stream(payload.device)
     ptrs = (payload.data_ptr(), slabs.data_ptr(), c2b.data_ptr(), rows, rows // M)
     if derivs:
+        per_cta = lib.neuma_g2p_derivs_rows_per_cta()
+        if (rows // M) % per_cta or payload.data_ptr() % 16:
+            raise ValueError(f"K3 takes 16-byte aligned chunks of a multiple of {per_cta} rows, "
+                             f"got {rows // M}")
         name, count = "neuma_g2p_gather_derivs", "g2p_derivs"
         rc = lib.neuma_g2p_gather_derivs(*ptrs, 1.0 / inv_dx, float(inv_dx), out.data_ptr(), stream)
     else:

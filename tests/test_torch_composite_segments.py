@@ -1,7 +1,18 @@
-"""The segment algebra of the K5 kernel (``neuma_tpu_torch/csrc/composite_bwd.cu``)
-against the port's plain K5 (``raster_kernel.composite_bwd_plain``), on the CPU.
+"""The segment algebra of the K4 and K5 kernels (``neuma_tpu_torch/csrc/composite.cu``,
+``csrc/composite_bwd.cu``) against the port's plain versions
+(``raster_kernel.composite_fwd_plain``, ``composite_bwd_plain``), on the CPU.
 
-The kernel cuts each tile's back-to-front walk into segments of ``seg``
+K4 cuts each tile's range into segments of ``seg`` slots. Launch A gives,
+per (segment, pixel), the product ``P`` of ``1 - alpha`` over the
+segment's contributing slots, the colour sums ``S_c = sum alpha T_local
+rgb_c`` and the last contributing slot; a pixel leaves a segment once
+``P < 1e-4``. Launch B takes each pixel's segments in order, carrying
+``T``: a segment with ``T P >= 1e-4 (1 + 1e-4)`` is taken whole (``C +=
+T S``, ``T *= P``), any other is walked again from ``T`` with the
+sequential stop test. ``_segmented_fwd`` below is that algorithm written
+in torch. Bound: K4's abs 2e-5 on T and C, ``last`` equal.
+
+K5 cuts each tile's back-to-front walk into segments of ``seg``
 slots that run in parallel. Phase A gives, per (segment, pixel), the
 product ``P`` of ``1 - alpha`` over the segment's contributing slots and
 the local colour sum ``S = sum alpha T_local (rgb . dC)``. Phase B starts
@@ -19,7 +30,96 @@ import torch
 
 from neuma_tpu_torch.render import raster_kernel as rk
 
+K4_TOL = 2e-5
 K5_TOL = 1e-5
+T_MIN = torch.tensor(1e-4, dtype=torch.float32)
+T_ACCEPT = T_MIN * torch.tensor(1.0 + 1e-4, dtype=torch.float32)
+
+
+def _pixels(nt, tiles_x):
+    t_idx, lane = torch.arange(nt), torch.arange(rk.PIX)
+    px = (((t_idx % tiles_x) * rk.TILE)[:, None] + (lane % rk.TILE)[None, :]).float()
+    py = (((t_idx // tiles_x) * rk.TILE)[:, None] + (lane // rk.TILE)[None, :]).float()
+    return px, py
+
+
+def _guard(pf, idx, px, py):
+    """K4's guard at pair slots ``idx`` (broadcast against the pixels):
+    (contributes before the stop test, alpha, the pair rows)."""
+    f = pf[idx.clamp(max=pf.shape[0] - 1)]
+    col = lambda k: f[..., k : k + 1]
+    dx, dy = col(0) - px, col(1) - py
+    power = -0.5 * (col(2) * dx * dx + col(4) * dy * dy) - col(3) * dx * dy
+    alpha = torch.clamp(col(5) * torch.exp(power), max=0.99)
+    return (power <= 0.0) & (alpha >= 1.0 / 255.0), alpha, f
+
+
+def _segmented_fwd(pf, tile_start, counts, tiles_x, seg):
+    """K4's launches A and B for every (tile, segment) at once."""
+    nt = counts.shape[0]
+    px, py = _pixels(nt, tiles_x)
+    starts, cnt = tile_start[:-1].long(), counts.long()
+    nseg = (cnt + seg - 1) // seg
+    n_seg = max(int(nseg.max()), 1)
+
+    # Launch A: per (tile, segment, pixel) summaries.
+    P = torch.ones((nt, n_seg, rk.PIX))
+    S = torch.zeros((nt, n_seg, 3, rk.PIX))
+    sl = torch.full((nt, n_seg, rk.PIX), -1, dtype=torch.int64)
+    left = torch.zeros((nt, n_seg, rk.PIX), dtype=torch.bool)
+    for j in range(seg):
+        loc = torch.arange(n_seg) * seg + j
+        ok, alpha, f = _guard(pf, starts[:, None] + loc[None, :], px[:, None, :], py[:, None, :])
+        c = ok & (loc[None, :] < cnt[:, None])[..., None] & ~left
+        w = alpha * P
+        S = torch.where(c[:, :, None], S + w[:, :, None] * f[..., 6:9, None], S)
+        P = torch.where(c, P * (1.0 - alpha), P)
+        sl = torch.where(c, j, sl)
+        left = left | (c & (P < T_MIN))
+
+    # Launch B: each pixel's segments in order.
+    T = torch.ones((nt, rk.PIX))
+    C = torch.zeros((nt, 3, rk.PIX))
+    last = torch.full((nt, rk.PIX), -1.0)
+    done = torch.zeros((nt, rk.PIX), dtype=torch.bool)
+    for s in range(n_seg):
+        live = ~done & (s < nseg)[:, None]
+        Tn = T * P[:, s]
+        whole = live & (Tn >= T_ACCEPT)
+        C = torch.where(whole[:, None], C + T[:, None] * S[:, s], C)
+        T = torch.where(whole, Tn, T)
+        last = torch.where(whole & (sl[:, s] >= 0),
+                           (starts[:, None] + s * seg + sl[:, s]).float(), last)
+        again = live & ~whole
+        if not bool(again.any()):
+            continue
+        for j in range(s * seg, (s + 1) * seg):
+            idx = starts + j
+            ok, alpha, f = _guard(pf, idx, px, py)
+            visit = again & ~done & (j < cnt)[:, None] & ok
+            test_T = T * (1.0 - alpha)
+            stop = visit & (test_T < T_MIN)
+            c = visit & ~stop
+            C = torch.where(c[:, None], C + (alpha * T)[:, None] * f[:, 6:9, None], C)
+            T = torch.where(c, test_T, T)
+            last = torch.where(c, idx.float()[:, None], last)
+            done = done | stop
+    return T, C.reshape(nt, 3 * rk.PIX), last
+
+
+def _stop_slots(pf, tile_start, counts, last, tiles_x):
+    """The slot (local to its tile) where each pixel stops on the 1e-4
+    test, -1 where it does not: the first slot past its ``last`` that
+    passes the guard, since that slot would have contributed."""
+    px, py = _pixels(counts.shape[0], tiles_x)
+    starts, cnt = tile_start[:-1].long(), counts.long()
+    stop = torch.full(last.shape, -1, dtype=torch.int64)
+    for s in range(int(cnt.max())):
+        idx = starts + s
+        ok, _, _ = _guard(pf, idx, px, py)
+        hit = ok & (s < cnt)[:, None] & (idx.float()[:, None] > last) & (stop < 0)
+        stop = torch.where(hit, s, stop)
+    return stop
 
 
 def _segmented_bwd(pf, tile_start, counts, T, last, dT, dC, tiles_x, seg):
@@ -95,18 +195,21 @@ def _segmented_bwd(pf, tile_start, counts, T, last, dT, dC, tiles_x, seg):
 
 
 def _frame(seed=0):
-    """A 3x2-tile frame: a long walk with many weak contributions per
+    """A 3x3-tile frame: a long walk with many weak contributions per
     pixel (T falls towards 1e-4), tiles with count 0, a tile whose pairs
-    are all below 1/255 (every pixel's last is -1) and a tile whose pairs
-    cover only one corner (some pixels never contribute)."""
+    are all below 1/255 (every pixel's last is -1), a tile whose pairs
+    cover only one corner (some pixels never contribute), a tile whose
+    pixel rows stop on the 1e-4 test at slots 64, 96 and 127 (the first,
+    a middle and the last slot of a 64-slot segment, and of 16-slot ones)
+    and a 300-pair tile whose pixels all stop at slot 3."""
     rng = np.random.default_rng(seed)
-    tiles_x, tiles_y = 3, 2
-    counts = np.array([1100, 0, 37, 150, 0, 90])
+    tiles_x, tiles_y = 3, 3
+    counts = np.array([1100, 0, 37, 150, 0, 90, 160, 300, 0])
     aligned = (counts + rk.CHUNK - 1) // rk.CHUNK * rk.CHUNK
     start = np.concatenate([[0], np.cumsum(aligned)])
     P = int(start[-1]) + rk.CHUNK
     pf = np.zeros((P, 9), np.float32)
-    for t, n in enumerate(counts):
+    for t, n in enumerate(counts[:6]):
         s = slice(start[t], start[t] + n)
         ox, oy = 16 * (t % tiles_x), 16 * (t // tiles_x)
         pf[s, 0] = ox - 4 + 24 * rng.random(n)
@@ -121,6 +224,33 @@ def _frame(seed=0):
     t5 = slice(start[5], start[5] + counts[5])
     pf[t5, 0], pf[t5, 1] = 32 + 3 * rng.random(counts[5]), 16 + 3 * rng.random(counts[5])
     pf[t5, 2:5] = [1.0, 0.0, 1.0]  # tight: only the corner's pixels see them
+    # Tile 6: conic (0, 0, 0) pairs have alpha = opacity at every pixel,
+    # (0, 0, 12) pairs at one pixel row only. Rows 0-3 are darkened to T ~
+    # 3e-4, rows 4-7 to ~3e-3, rows 8-11 to ~3e-2 before three opacity-0.9
+    # walls at slots 64, 96 and 127, so each group stops at one wall; rows
+    # 12-15 never stop. The other slots hold pairs below 1/255.
+    t6 = start[6]
+    pf[t6 : t6 + counts[6]] = [0, 0, 0, 0, 0, 1e-3, 0.5, 0.5, 0.5]
+    pf[t6 : t6 + counts[6], 0] = 16 * rng.random(counts[6])
+    darken = {0: [0.9, 0.9, 0.97], 4: [0.9, 0.97], 8: [0.97]}
+    slot = t6
+    for row0, ops in darken.items():
+        for row in range(row0, row0 + 4):
+            for op in ops:
+                pf[slot] = [8.0, 32 + row, 0, 0, 12.0, op, *rng.random(3)]
+                slot += 1
+    for w in (64, 96, 127):
+        pf[t6 + w] = [8.0, 40.0, 0, 0, 0, 0.9, *rng.random(3)]
+    # Tile 7: three uniform opacity-0.95 pairs take T to 1.25e-4 and a
+    # uniform opacity-0.5 one stops every pixel at slot 3; the random pairs
+    # behind never count.
+    t7 = slice(start[7], start[7] + counts[7])
+    pf[t7, 0], pf[t7, 1] = 16 + 16 * rng.random(counts[7]), 32 + 16 * rng.random(counts[7])
+    pf[t7, 2:5] = [0.05, 0.01, 0.05]
+    pf[t7, 5] = 0.02 + 0.5 * rng.random(counts[7])
+    pf[t7, 6:9] = rng.random((counts[7], 3))
+    pf[start[7] : start[7] + 4, 2:5] = 0.0
+    pf[start[7] : start[7] + 4, 5] = [0.95, 0.95, 0.95, 0.5]
     as_i32 = lambda a: torch.as_tensor(a, dtype=torch.int32)
     args = (torch.as_tensor(pf), as_i32(start), as_i32(counts), tiles_x)
     T, _, last = rk.composite_fwd_plain(*args)
@@ -139,9 +269,29 @@ def test_frame_covers_the_edge_cases(frame):
     (pf, start, counts, T, last, *_), _ = frame
     walk = last.max(1).values - start[:-1].float() + 1
     assert walk[0] > 256  # crosses several segment boundaries at every length tested
-    assert (counts == 0).sum() == 2 and bool((last[2] == -1).all())
+    assert (counts == 0).sum() == 3 and bool((last[2] == -1).all())
     assert bool((last[5] == -1).any()) and bool((last[5] >= 0).any())
     assert float(T[0].min()) < 1e-2  # many contributions per pixel
+
+
+def test_frame_stops_at_segment_edges(frame):
+    """The 1e-4 test fires where the frame puts it: in tile 6 on 64 pixels
+    at each of slots 64, 96 and 127, in tile 7 on every pixel at slot 3."""
+    (pf, start, counts, T, last, *_), _ = frame
+    stop = _stop_slots(pf, start, counts, last, 3)
+    for k, slot in enumerate((64, 96, 127)):
+        assert bool((stop[6, 64 * k : 64 * (k + 1)] == slot).all()), slot
+    assert bool((stop[6, 192:] == -1).all()) and float(T[6, 192:].min()) >= 1e-4
+    assert bool((stop[7] == 3).all()) and int(counts[7]) > 4 * 64
+
+
+@pytest.mark.parametrize("seg", [16, 64, 100, 1024])
+def test_forward_segment_algebra_matches_plain(frame, seg):
+    (pf, start, counts, *_), _ = frame
+    T, C, last = _segmented_fwd(pf, start, counts, 3, seg)
+    Tp, Cp, lp = rk.composite_fwd_plain(pf, start, counts, 3)
+    assert float((T - Tp).abs().max()) <= K4_TOL and float((C - Cp).abs().max()) <= K4_TOL
+    assert torch.equal(last, lp)
 
 
 @pytest.mark.parametrize("seg", [16, 64, 100, 1024])

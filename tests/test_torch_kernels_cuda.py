@@ -11,8 +11,8 @@ Bounds: K1, K2 and K3 at a scaled 1e-5 (both sides full FP32; K3 per
 output group); K4 at atol 2e-5 on T and C with ``last`` equal; K5 at a
 scaled 1e-5 per column (the kernel starts each segment of a walk from
 per-segment summaries and takes one reciprocal per visit, and sums the
-256 pixels in another order). K1 and K5 also run twice on the same
-inputs and must agree bit for bit.
+256 pixels in another order). K1, K3, K4 and K5 also run twice on the
+same inputs and must agree bit for bit.
 """
 import numpy as np
 import pytest
@@ -192,15 +192,15 @@ def test_p2g_kernel_dense_block_and_clipped_taps(cuda):
     assert torch.equal(out, pk.run_p2g_fwd(payload, c2b, NB))  # bitwise repeatable
 
 
-def _skewed_frame(device):
-    """An 8x4-tile frame for K5: one tile with 2,100 weak pairs that every
+def _skewed_frame(device, long=2100):
+    """An 8x4-tile frame: one tile with ``long`` weak pairs that every
     pixel walks to the end, a tile of strong wide pairs whose pixels stop
     early, a tile whose pairs sit on its top rows (the lower warps never
-    contribute), and 24 empty tiles."""
+    contribute), and 28 empty tiles."""
     rng = np.random.default_rng(11)
     tiles_x, tiles_y = 8, 4
     counts = np.zeros(tiles_x * tiles_y, np.int64)
-    counts[[9, 10, 21, 30]] = [2100, 300, 120, 40]
+    counts[[9, 10, 21, 30]] = [long, 300, 120, 40]
     aligned = (counts + rk.CHUNK - 1) // rk.CHUNK * rk.CHUNK
     start = np.concatenate([[0], np.cumsum(aligned)])
     pf = np.zeros((int(start[-1]) + rk.CHUNK, 9), np.float32)
@@ -237,3 +237,50 @@ def test_composite_bwd_kernel_skewed_frame(cuda):
     for j in range(9):
         assert _scaled_err(out[:end, j], ref[:end, j]) <= 1e-5, j
     assert torch.equal(out, rk.composite_bwd(*args))  # bitwise repeatable
+
+
+@pytest.mark.cuda
+def test_composite_kernel_skewed_frame(cuda):
+    """K4 on one 1,500-pair tile beside 28 empty ones, with a tile whose
+    pixels all stop on the 1e-4 test within the first of its five
+    64-slot segments."""
+    pf, start, counts, tiles_x = _skewed_frame(cuda, long=1500)
+    args = (pf, start, counts, tiles_x)
+    Tk, Ck, lk = rk.composite_fwd(*args)
+    Tp, Cp, lp = rk.composite_fwd_plain(*args)
+    walk = lp.max(1).values - start[:-1].float() + 1
+    assert float(walk[9]) >= 1400 and int((counts == 0).sum()) == 28
+    assert float(walk[10]) < 64 and int(counts[10]) == 300 and float(Tp[10].max()) < 1e-3
+    assert float((Tk - Tp).abs().max()) <= 2e-5 and float((Ck - Cp).abs().max()) <= 2e-5
+    assert torch.equal(lk, lp)
+    for a, b in zip((Tk, Ck, lk), rk.composite_fwd(*args)):
+        assert torch.equal(a, b)  # bitwise repeatable
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["p2g_adjoint", "g2p_adjoint"])
+def test_g2p_derivs_kernel_clipped_taps_and_padding(cuda, role):
+    """K3 in both roles of the step backward (the forward (mass, b, affine)
+    payload; zero mass with (d new_v, kappa d new_C)), on a payload with
+    padding rows and with tap lines moved outside 0..15 on some rows."""
+    c, lay, payload = _payload(32, 3000, cuda, seed=5)
+    _, NB = pk._num_blocks(c)
+    gen = torch.Generator().manual_seed(6)
+    if role == "g2p_adjoint":
+        n = lay.sort.fx.shape[0]
+        kappa = 4.0 * float(c.inv_dx) ** 2
+        payload = pk.pack_payload(c, lay.gather, lay.sort.fx, lay.sort.loc, None,
+                                  torch.randn((n, 3), generator=gen).to(cuda),
+                                  kappa * 1e-2 * torch.randn((n, 3, 3), generator=gen).to(cuda))
+    live = torch.nonzero(payload[:, 0:9].abs().sum(1) > 0).squeeze(1)
+    assert live.numel() < payload.shape[0]  # padding rows
+    payload = payload.clone()
+    for k, (col, line) in enumerate([(pk._L0, -1.0), (pk._L0 + 5, 16.0), (pk._L0 + 7, -3.0)]):
+        payload[live[k::7], col] = line  # one x, one y, one z tap clipped
+    slabs = torch.randn((NB, 4, 16, 16, 16), generator=gen).to(cuda)
+    args = (payload, slabs, lay.gather.c2b, float(c.inv_dx), True)
+    out, ref = pk.run_apic_gather(*args), pk.run_apic_gather_plain(*args)
+    assert bool((out[payload[:, 0:9].abs().sum(1) == 0] == 0).all())
+    for cols in (slice(0, 1), slice(1, 4), slice(4, 13), slice(13, 16)):
+        assert _scaled_err(out[:, cols], ref[:, cols]) <= 1e-5, cols
+    assert torch.equal(out, pk.run_apic_gather(*args))  # bitwise repeatable

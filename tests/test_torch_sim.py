@@ -136,8 +136,16 @@ def test_p2g_plain_matches_interpret(payload_inputs):
     _scaled_close(out.numpy(), ref, 3e-5)
 
 
-def test_g2p_plain_matches_interpret(payload_inputs):
+@pytest.mark.parametrize("clip", [False, True])
+def test_g2p_plain_matches_interpret(payload_inputs, clip):
+    """With ``clip`` some rows carry tap lines outside 0..15 (-1, 16),
+    which read zero in both."""
     jl, tl, jpay, tpay = payload_inputs
+    if clip:
+        pay = np.asarray(jpay).copy()
+        for k, (col, line) in enumerate([(tpk._L0, -1.0), (tpk._L0 + 5, 16.0), (tpk._L0 + 7, -1.0)]):
+            pay[k::5, col] = line
+        jpay, tpay = jnp.asarray(pay), torch.from_numpy(pay)
     M = jl.gather.c2b.shape[0]
     slabs = np.random.default_rng(2).standard_normal((27, 4, 16, 16, 16)).astype(np.float32)
     ref = jax.jit(

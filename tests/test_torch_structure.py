@@ -49,9 +49,10 @@ def test_p2g_kernel_has_no_float_atomics():
     assert "atomicAdd" not in src and "atomic" not in src.replace("atomics", "")
 
 
-@pytest.mark.parametrize("name", ["g2p_bwd.cu", "composite_bwd.cu"])
+@pytest.mark.parametrize("name", ["g2p_bwd.cu", "composite_bwd.cu", "composite.cu"])
 def test_backward_kernels_have_no_float_atomics(name):
-    """K3 sums its taps and K5 each pair's pixels in a fixed order."""
+    """K3 sums its taps, K4 its segments and K5 each pair's pixels in a
+    fixed order."""
     src = (PORT / "csrc" / name).read_text()
     assert "atomicAdd" not in src and "atomic" not in src.replace("atomics", "")
 
@@ -66,7 +67,8 @@ def _float_atomics(src):
             if "float" in call.group(1) or set(re.findall(r"\w+", call.group(1))) & floats]
 
 
-@pytest.mark.parametrize("path", sorted((PORT / "csrc").glob("*.cu")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((PORT / "csrc").glob("*.cu")) + sorted((PORT / "csrc").glob("*.cuh")),
+                         ids=lambda p: p.name)
 def test_no_float_atomics_in_any_kernel(path):
     """No atomicAdd / atomicAdd_block / atomicCAS (or any other atomic)
     on a float: every reduction runs in a fixed order."""
