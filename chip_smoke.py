@@ -12,12 +12,16 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    PyTorch version on the card, on inputs taken from the headline and the
    realworld scenes; each kernel, its plain version and (K1 only)
    ``index_add_`` are timed with CUDA events, and the device time of each
-   CUDA kernel a wrapper launches is read with torch.profiler. For K1,
-   K3, K4 and K5 it also prints the work they get (K1: occupied blocks
-   and chunks per block; K3: rows, CTAs, threads per row; K4: the tiles'
-   pair counts, the pixels that stop on the 1e-4 test, the (tile,
-   segment) items and those walked again, the scratch bytes; K5: the
-   tiles' walk lengths and the (tile, segment) work items).
+   CUDA kernel a wrapper launches is read with torch.profiler. Each
+   bound counts the bytes the function needs (K1-K3: the payload columns
+   it reads; K2/K3: the slab cells its taps touch), with the older
+   all-48-column figure beside it; K2 also gets a launch floor, the device
+   time of one launch writing its output only. It also
+   prints the work each kernel gets (K1: occupied blocks and chunks per
+   block; K2 and K3: rows, CTAs, threads per row, live rows per occupied
+   block, slab cells read; K4: the tiles' pair counts, the pixels that stop on the 1e-4
+   test, the (tile, segment) items and those walked again, the scratch
+   bytes; K5: the tiles' walk lengths and the (tile, segment) work items).
 3. Headline forward (10k particles, 32^3 grid, one 800x800 view, 4
    frames x 1 substep) under ``torch.no_grad()``: loss, overflow,
    ms/frame (median of 3 after a warm-up) and the forward's launch counts
@@ -50,6 +54,13 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     ``finetune_constitutive`` for 3 epochs (finite losses; only
     ``lora_a``/``lora_b`` change, every other leaf stays bitwise equal)
     and ``optimize_init_velocity`` for 2 epochs.
+12. A dense-grid scene (``num_grids = 24``, the largest grid on the dense
+    branch; 5,000 particles, one 400x400 view, 2 frames x 4 substeps):
+    the forward and the value-and-grad on the card against the same code
+    on the CPU (loss within rtol 1e-4, each gradient leaf within a scaled
+    1e-3, the bounds of phases 6 and 10), two card value-and-grads with a
+    bitwise-equal loss and gradient leaves, K1-K3 never launched and K4/K5
+    launched on that path, and ms/frame forward and forward + backward.
 
 The scenes follow ``bench.py``'s recipe with random weights from seed 0.
 Output: one JSON line ``{"kernels": [...]}`` (launches counted on the
@@ -79,6 +90,10 @@ K4_TOL = 2e-5  # abs error on T and C
 K5_TOL = 1e-5  # scaled per column: segment starts, approximate reciprocal, pixel-sum order
 GRAD_TOL = 1e-3  # small scene gradients, card vs CPU, scaled per leaf
 KERNELS = ("p2g", "g2p", "g2p_derivs", "composite", "composite_bwd")
+# Payload columns (of 48) each function reads, counted by its bound: K1
+# weights, lines, b_eff, A dx, mass (0-30); K2 weights, lines, fx (0-17,
+# 41-43); K3 all of those and the spline derivatives (0-30, 32-43).
+PAYLOAD_COLS_READ = {"p2g": 31, "g2p": 21, "g2p_derivs": 43}
 
 
 def log(msg: str) -> None:
@@ -314,9 +329,25 @@ def composite_fwd_work(inp, lk, seg):
                 items_with_a_stop=int(seg_of_stop.numel()))
 
 
-def g2p_derivs_work(inp, rows_per_cta, threads_per_row):
-    """K3's work: payload rows, CTAs, threads per row, and the live rows
-    per occupied block (a chunk's rows share one block's slab)."""
+def gather_slab_cells(payload, c2b):
+    """Distinct (block, x, y, z) slab cells that the live rows' in-range
+    taps read: the slab bytes a gather needs are these cells' 4 channels."""
+    from neuma_tpu_torch.sim import p2g_kernel as pk
+
+    rows, S = payload.shape[0], pk.S
+    live = payload[:, pk._W0 : pk._W0 + 9].abs().sum(1) > 0
+    blk = torch.repeat_interleave(c2b.to(torch.int64), rows // c2b.shape[0])[live]
+    lines = payload[live, pk._L0 : pk._L0 + 9].to(torch.int64).reshape(-1, 3, 3)
+    o = [torch.as_tensor(pk._OFFSETS[:, a], device=payload.device) for a in range(3)]
+    lx, ly, lz = lines[:, 0, o[0]], lines[:, 1, o[1]], lines[:, 2, o[2]]  # (live, 27)
+    inside = ((lx >= 0) & (lx < S) & (ly >= 0) & (ly < S) & (lz >= 0) & (lz < S))
+    cell = ((blk[:, None] * S + lx) * S + ly) * S + lz
+    return int(torch.unique(cell[inside]).numel())
+
+
+def g2p_work(inp, rows_per_cta, threads_per_row):
+    """K2's or K3's work: payload rows, CTAs, threads per row, and the live
+    rows per occupied block (a chunk's rows share one block's slab)."""
     p, c2b = inp["payload_g"], inp["c2b_g"].to(torch.int64)
     rows, M = p.shape[0], c2b.shape[0]
     live = p[:, 0:9].abs().sum(1) > 0  # spline weights: nonzero on every live row
@@ -343,13 +374,18 @@ def check_and_time(tag, inp, rec):
     e1 = scaled_err(k, p)
     ok &= e1 <= K12_TOL
     rows, M, NB = inp["payload"].shape[0], inp["c2b"].shape[0], inp["NB"]
-    b1 = bound_ms(rows * 48 * 4 + M * 4 + NB * 16384 * 4, inp["live"] * 27 * 28)
+    # bound_ms counts the payload columns read; bound_ms_48col (the older
+    # formula, kept for comparison) counts all 48 and, for K2/K3, whole slabs.
+    b1 = bound_ms(rows * PAYLOAD_COLS_READ["p2g"] * 4 + M * 4 + NB * 16384 * 4,
+                  inp["live"] * 27 * 28)
+    b1_48 = bound_ms(rows * 48 * 4 + M * 4 + NB * 16384 * 4, inp["live"] * 27 * 28)
     lib1 = p2g_library_call(inp)
     rec["p2g"][tag] = dict(
         max_abs_err=e1, tol=K12_TOL,
         ms=cuda_ms(lambda: pk.run_p2g_fwd(inp["payload"], inp["c2b"], NB), 20),
         plain_ms=cuda_ms(lambda: pk.run_p2g_fwd_plain(inp["payload"], inp["c2b"], NB), 3),
-        library_ms=cuda_ms(lib1, 5), bound_ms=b1[0], bound_by=b1[1], M=M, NB=NB,
+        library_ms=cuda_ms(lib1, 5), bound_ms=b1[0], bound_by=b1[1],
+        bound_ms_48col=b1_48[0], M=M, NB=NB,
         device_rows=device_rows(lambda: pk.run_p2g_fwd(inp["payload"], inp["c2b"], NB)),
         work=p2g_block_stats(inp),
     )
@@ -361,22 +397,29 @@ def check_and_time(tag, inp, rec):
     e2 = scaled_err(k, p)
     ok &= e2 <= K12_TOL
     rows = inp["payload_g"].shape[0]
-    b2 = bound_ms(
-        rows * 48 * 4 + inp["slabs"].numel() * 4 + M * 4 + rows * 16 * 4, inp["live"] * 27 * 34
-    )
+    cells = gather_slab_cells(inp["payload_g"], inp["c2b_g"])
+    fixed = M * 4 + rows * 16 * 4  # c2b in, (rows, 16) out
+    b2 = bound_ms(rows * PAYLOAD_COLS_READ["g2p"] * 4 + cells * 16 + fixed, inp["live"] * 27 * 34)
+    b2_48 = bound_ms(rows * 48 * 4 + inp["slabs"].numel() * 4 + fixed, inp["live"] * 27 * 34)
+    out2 = torch.empty((rows, 16), device=k.device)
     rec["g2p"][tag] = dict(
         max_abs_err=e2, tol=K12_TOL,
         ms=cuda_ms(lambda: pk.run_apic_gather(*args), 20),
         plain_ms=cuda_ms(lambda: pk.run_apic_gather_plain(*args), 3),
-        library_ms=None, bound_ms=b2[0], bound_by=b2[1], rows=rows,
+        library_ms=None, bound_ms=b2[0], bound_by=b2[1], bound_ms_48col=b2_48[0], rows=rows,
         device_rows=device_rows(lambda: pk.run_apic_gather(*args)),
+        # the launch floor: one launch that writes K2's output and nothing else
+        output_only_ms=sum(device_rows(lambda: out2.zero_()).values()),
+        work=dict(g2p_work(inp, lib.neuma_g2p_rows_per_cta(), lib.neuma_g2p_threads_per_row()),
+                  slab_cells_read=cells),
     )
     # K3: both gathers of the step backward; each output group (dgm, db,
     # dA, dx) is scaled by its own largest value (absolute where all zero,
     # as dgm is in the second gather).
     groups = (slice(0, 1), slice(1, 4), slice(4, 13), slice(13, 16))
-    e3, ms3, plain3, rows3 = 0.0, 0.0, 0.0, {}
+    e3, ms3, plain3, rows3, cells3 = 0.0, 0.0, 0.0, {}, 0
     for payload, slabs in inp["k3"]:
+        cells3 += gather_slab_cells(payload, inp["c2b_g"]) / 2
         a3 = (payload, slabs, inp["c2b_g"], inp["inv_dx"], True)
         k = pk.run_apic_gather(*a3)
         p = pk.run_apic_gather_plain(*a3)
@@ -387,14 +430,14 @@ def check_and_time(tag, inp, rec):
         for key, ms in device_rows(lambda: pk.run_apic_gather(*a3)).items():
             rows3[key] = rows3.get(key, 0.0) + ms / 2
     ok &= e3 <= K3_TOL
-    b3 = bound_ms(
-        rows * 48 * 4 + inp["slabs"].numel() * 4 + M * 4 + rows * 16 * 4, inp["live"] * 27 * 71
-    )
+    b3 = bound_ms(rows * PAYLOAD_COLS_READ["g2p_derivs"] * 4 + cells3 * 16 + fixed,
+                  inp["live"] * 27 * 71)
+    b3_48 = bound_ms(rows * 48 * 4 + inp["slabs"].numel() * 4 + fixed, inp["live"] * 27 * 71)
     rec["g2p_derivs"][tag] = dict(
         max_abs_err=e3, tol=K3_TOL, ms=ms3, plain_ms=plain3, library_ms=None,
-        bound_ms=b3[0], bound_by=b3[1], rows=rows, device_rows=rows3,
-        work=g2p_derivs_work(inp, lib.neuma_g2p_derivs_rows_per_cta(),
-                             lib.neuma_g2p_derivs_threads_per_row()),
+        bound_ms=b3[0], bound_by=b3[1], bound_ms_48col=b3_48[0], rows=rows, device_rows=rows3,
+        work=dict(g2p_work(inp, lib.neuma_g2p_derivs_rows_per_cta(),
+                           lib.neuma_g2p_derivs_threads_per_row()), slab_cells_read=cells3),
     )
     # K4
     args = (inp["pf"], inp["tile_start"], inp["counts"], inp["tiles_x"])
@@ -450,7 +493,10 @@ def check_and_time(tag, inp, rec):
             + (f", last mismatches {r['last_mismatch']}" if name == "composite" else "")
             + f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
+            + (f" (all 48 columns {r['bound_ms_48col']:.5f})" if "bound_ms_48col" in r else "")
             + (f", index_add_ {r['library_ms']:.4f} ms" if r["library_ms"] is not None else "")
+            + (f", output-only launch {r['output_only_ms']:.5f} ms device"
+               if "output_only_ms" in r else "")
         )
     for name in KERNELS:
         r = rec[name][tag]
@@ -790,6 +836,59 @@ def training_phases(scenes, report, init_v):
     return base_ok and losses_ok and v_ok, launches
 
 
+DENSE_SCENE = dict(n_particles=5000, grid=24, substeps=4, width=400, height=400, n_views=1,
+                   force_mask=False, max_pairs=1 << 15, max_per_tile=512)
+
+
+def dense_phase(report, init_v):
+    """Phase 12: the dense-grid step (no K1-K3) through the rollout, on the
+    card and on the CPU."""
+    from neuma_tpu_torch.train.grounding import build_scene, make_rollout_loss
+
+    t0 = time.perf_counter()
+    frames, size = 2, (DENSE_SCENE["height"], DENSE_SCENE["width"])
+    gt = torch.rand((frames, 1, 3, *size), generator=torch.Generator().manual_seed(2))
+    scenes = {dev: build_scene(**DENSE_SCENE, seed=0, device=dev) for dev in ("cuda", "cpu")}
+    args = {"cuda": (init_v, torch.ones(frames, device="cuda"), gt.cuda()),
+            "cpu": (init_v.cpu(), torch.ones(frames), gt)}
+    fwd = torch.no_grad()(make_rollout_loss(scenes["cuda"], device="cuda"))
+    (loss_f, aux), sec_f, launches_f = timed(fwd, args["cuda"])
+    vg = value_and_grad_fn(scenes["cuda"], "cuda")
+    (loss_a, _, grads_a), sec_vg, launches_vg = timed(vg, args["cuda"])
+    loss_b, _, grads_b = vg(*args["cuda"])
+    n_same = sum(torch.equal(a, b) for a, b in zip(grads_a, grads_b))
+    same = bool(torch.equal(loss_a, loss_b)) and n_same == len(grads_a)
+    # one CPU value-and-grad: its loss is the forward's (the same code)
+    l_cpu, _, g_cpu = value_and_grad_fn(scenes["cpu"], "cpu")(*args["cpu"])
+    rel = abs(float(loss_a) - float(l_cpu)) / abs(float(l_cpu))
+    rel_f = abs(float(loss_f) - float(l_cpu)) / abs(float(l_cpu))
+    errs = [scaled_err(a.cpu(), b) for a, b in zip(grads_a, g_cpu)]
+    finite = bool(torch.isfinite(loss_a)) and all(bool(torch.isfinite(g).all()) for g in grads_a)
+    slab_free = all(launches.get(k, 0) == 0 for launches in (launches_f, launches_vg)
+                    for k in ("p2g", "g2p", "g2p_derivs"))
+    rendered = launches_f.get("composite", 0) > 0 and all(
+        launches_vg.get(k, 0) > 0 for k in ("composite", "composite_bwd"))
+    ms_f, ms_vg = sec_f / frames * 1e3, sec_vg / frames * 1e3
+    log(f"[dense] num_grids 24, 5000 particles, one 400x400 view, 2 frames x 4 substeps: "
+        f"loss {float(loss_a):.6f} overflow {bool(aux['overflow'])}; {ms_f:.2f} ms/frame forward, "
+        f"{ms_vg:.2f} ms/frame forward+backward; launches forward {dict(launches_f)} "
+        f"forward+backward {dict(launches_vg)}")
+    log(f"[dense] card vs CPU: forward loss rel gap {rel_f:.2e}, value-and-grad loss rel gap "
+        f"{rel:.2e} (bound 1e-4); gradient scaled max error {max(errs):.2e} over {len(errs)} "
+        f"leaves (bound {GRAD_TOL:.0e}); two card runs: loss bitwise equal "
+        f"{bool(torch.equal(loss_a, loss_b))}, {n_same} of {len(grads_a)} leaves bitwise equal; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    report["dense"] = dict(seconds=time.perf_counter() - t0, loss=float(loss_a), overflow=bool(aux["overflow"]), ms_per_frame_forward=ms_f,
+                           ms_per_frame_train=ms_vg, launches_forward=dict(launches_f),
+                           launches_train=dict(launches_vg), loss_rel_gap=rel,
+                           forward_loss_rel_gap=rel_f, grad_errs=errs, bitwise=same)
+    ok = (finite and same and slab_free and rendered and rel <= 1e-4 and rel_f <= 1e-4
+          and max(errs) <= GRAD_TOL)
+    if not ok:
+        log("[dense] FAILED")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -896,6 +995,8 @@ def main() -> int:
 
     # 7-11. the training path
     ok, launches = training_phases(scenes, report, init_v)
+    # 12. the dense-grid step
+    ok_dense = ok and dense_phase(report, init_v)
     report.update(kernels=rec, launches_train_headline=launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "build"
@@ -903,6 +1004,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     if not ok:
         log("[train] FAILED")
+        return 1
+    if not ok_dense:
         return 1
 
     sources = {

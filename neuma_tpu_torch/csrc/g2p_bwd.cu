@@ -41,27 +41,17 @@
 // latency of the slab loads and the launch itself dominate.
 #include <cuda_runtime.h>
 
+#include "g2p_common.cuh"
+
 namespace {
 
-constexpr int S = 16;
-constexpr int S3 = S * S * S;
-constexpr int COLS = 48;
-constexpr int OUT_COLS = 16;
+using namespace g2p;
+
 constexpr int ROWS = 128;        // payload rows per CTA: one gather chunk
 constexpr int SPLIT = 3;         // threads per row, one per x tap
 constexpr int THREADS = ROWS * SPLIT;
 constexpr int PSTRIDE = 52;      // staged row stride in floats (16-byte aligned)
 constexpr int OSTRIDE = OUT_COLS + 1;
-constexpr int W0 = 0, L0 = 9, BE0 = 18, AC0 = 21, GM = 30, WD0 = 32, FX0 = 41;
-
-__device__ __forceinline__ void copy16(float* smem, const float* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ float pick(float a, float b, float c, int k) {
-  return k == 0 ? a : (k == 1 ? b : c);
-}
 
 __global__ void __launch_bounds__(THREADS)
 g2p_gather_derivs_kernel(const float* __restrict__ payload, const float* __restrict__ slabs,

@@ -56,7 +56,9 @@ _SIGNATURES = {
     "neuma_composite_bwd_scratch_words": [I, I],
     # slots per (tile, segment) work item of K4 and K5
     "neuma_composite_seg": [],
-    # K3's payload rows per CTA and threads per row
+    # K2's and K3's payload rows per CTA and threads per row
+    "neuma_g2p_rows_per_cta": [],
+    "neuma_g2p_threads_per_row": [],
     "neuma_g2p_derivs_rows_per_cta": [],
     "neuma_g2p_derivs_threads_per_row": [],
 }

@@ -1,27 +1,32 @@
-"""MLS-MPM step, slab branch, with its direct adjoint.
+"""MLS-MPM step, slab and dense branches, with its direct adjoint.
 
-Counterpart of ``neuma_tpu/sim/mpm.py``: ``_p2g_terms``,
-``grid_op_slabs`` (``noslip`` and ``freeslip``), ``_g2p_tail``,
-``_step_fwd_slab``, ``_step_bwd_slab``, ``mpm_step``, ``mpm_step_diff``,
-``make_packed_substep`` and ``scrub_cotangents``. The grid lives as
-halo-complete per-block slabs from the P2G kernel (K1) through the grid
-op to the G2P kernel (K2); it never exists densely.
+Counterpart of ``neuma_tpu/sim/mpm.py``: ``_p2g_terms``, ``grid_op``
+and ``grid_op_slabs`` (``noslip`` and ``freeslip``), ``g2p_core``,
+``_g2p_tail``, ``_step_sort``, the step on either branch (``_step_fwd``,
+the direct adjoint ``_step_bwd``), ``mpm_step``, ``mpm_step_diff``,
+``make_packed_substep`` and ``scrub_cotangents``.
+
+Grids of more than 24 cells take the slab branch on any device: the grid
+lives as halo-complete per-block slabs from the P2G kernel (K1) through
+the grid op to the G2P kernel (K2) and never exists densely. Grids of at
+most 24 cells take the dense branch, as the JAX package does on every
+backend: the ordered dense scatter of ``sim/blocked.py``, ``grid_op`` on
+the (G^3,) grid and the 27-tap gather of ``g2p_core`` (its full-cube
+``_stencil`` is ``blocked._tap_geometry``). The dense branch launches no
+kernel and needs no block layouts (``_step_sort`` gives None).
 
 The backward composes the piece adjoints explicitly, as the JAX
-package's custom VJPs do, and never runs autograd through a kernel:
-the tail vjp, K1 as the transpose of the gather, the ``grid_op_slabs``
-vjp, K3 twice (the P2G adjoint and the G2P position adjoint), the
-``_p2g_terms`` vjp, then the NaN/Inf scrub of every outgoing cotangent.
-The elementwise pieces' vjps are autograd on a recompute, as
-``jax.vjp`` is in the JAX package. ``make_packed_substep`` is one
-``torch.autograd.Function`` that saves the state, stress, slab residual,
+package's custom VJPs do, and never runs autograd through a kernel: the
+tail vjp, the transpose of the gather (K1 on slabs, the dense scatter
+on the dense grid), the grid-op vjp, the two tap-gather adjoints (K3
+twice, or ``blocked._apic_bwd_dual_impl``), the ``_p2g_terms`` vjp, then
+the NaN/Inf scrub of every outgoing cotangent. The elementwise pieces'
+vjps are autograd on a recompute, as ``jax.vjp`` is in the JAX package.
+``make_packed_substep`` is one ``torch.autograd.Function`` that saves the
+state, stress, grid residual (the merged slabs, or grid_m and grid_mv),
 ``new_v``/``new_C`` and the pre-plasticity F, and recomputes each
-material's forward in its backward (no MLP or SVD activations are
-kept across the rollout).
-
-The slab branch is taken whenever ``num_grids > 24``, on any device.
-The dense grid path for ``num_grids <= 24`` is ported in a later slice;
-asking for it raises.
+material's forward in its backward (no MLP or SVD activations are kept
+across the rollout).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 from torch import nn
 
 from ..core.types import MPMConstants, ParticleState, Statics
+from .blocked import _apic_bwd_dual_impl, _apic_bwd_jnp, _dense_forward, _tap_geometry
 from .p2g_kernel import (
     BLOCK,
     S,
@@ -96,6 +102,64 @@ def grid_op_slabs(constants: MPMConstants, slabs: torch.Tensor, nbs) -> torch.Te
     return torch.stack(v + [torch.zeros_like(v[0])], dim=1)
 
 
+def grid_op(constants: MPMConstants, grid_m: torch.Tensor, grid_mv: torch.Tensor) -> torch.Tensor:
+    """Momentum -> velocity, gravity and the box boundary on the dense
+    grid: grid_m (G^3,), grid_mv (G^3, 3) -> velocity (G^3, 3)."""
+    g = constants.num_grids
+    bound = constants.bound
+    gv = constants.gravity.to(grid_mv.dtype) * constants.dt
+    has_mass = grid_m > 0.0
+    # where m == 0 divide by 1 (the value is replaced): no NaN either way
+    denom = torch.where(has_mass, grid_m + constants.eps, 1.0)[:, None]
+    v = torch.where(has_mass[:, None], grid_mv / denom + gv, gv)
+    idx = torch.arange(g ** 3, device=grid_mv.device)
+    coords = torch.stack([idx // (g * g), (idx // g) % g, idx % g], dim=-1)
+    violating = ((coords < bound) & (v < 0.0)) | ((coords >= g - bound) & (v > 0.0))
+    if constants.bc == "freeslip":
+        return torch.where(violating, 0.0, v)
+    if constants.bc == "noslip":
+        return torch.where(violating.any(dim=-1, keepdim=True), 0.0, v)
+    raise ValueError(f"invalid boundary condition: {constants.bc}")
+
+
+def _g2p_dense(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor):
+    """new_v = sum_o W_o grid_v[cell_o], new_C = kappa sum_o W_o grid_v[cell_o] (x) dpos_o."""
+    kappa = 4.0 * constants.inv_dx * constants.inv_dx
+    flat, weight, _, dpos = _tap_geometry(constants, x)
+    v_taps = grid_v[flat]  # (N, 27, 3)
+    new_v = torch.einsum("no,noi->ni", weight, v_taps)
+    new_C = kappa * torch.einsum("no,noi,noj->nij", weight, v_taps, dpos)
+    return new_v, new_C
+
+
+class _G2PCore(torch.autograd.Function):
+    """The dense G2P tap contractions; the backward routes the grid
+    cotangent through the dense scatter with b = d new_v, A = kappa d new_C
+    (the exact transpose) and the position cotangent through the same
+    tap-space gather as the step backward."""
+
+    @staticmethod
+    def forward(ctx, constants, x, grid_v):
+        ctx.save_for_backward(x, grid_v)
+        ctx.constants = constants
+        return _g2p_dense(constants, x, grid_v)
+
+    @staticmethod
+    def backward(ctx, dv, dC):
+        x, grid_v = ctx.saved_tensors
+        constants = ctx.constants
+        A = 4.0 * constants.inv_dx * constants.inv_dx * dC
+        _, d_grid = _dense_forward(constants, x, None, dv, A)
+        d_x, _, _, _ = _apic_bwd_jnp(constants, x, None, dv, A, None, grid_v)
+        return None, d_x, d_grid
+
+
+def g2p_core(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor):
+    """The two tap contractions of G2P on the dense grid, (new_v, new_C),
+    with the JAX package's custom backward."""
+    return _G2PCore.apply(constants, x, grid_v)
+
+
 def _g2p_tail(
     constants: MPMConstants,
     statics: Statics,
@@ -138,6 +202,31 @@ def _step_fwd_slab(constants, statics, state, stress, sort):
     return out, slabs_mmv, new_v, new_C
 
 
+def _slab_grid(constants: MPMConstants) -> bool:
+    return constants.num_grids > 24
+
+
+def _step_sort(constants: MPMConstants, x: torch.Tensor):
+    """The step's shared block sort and chunk layouts: built on the slab
+    branch, None on the dense one (which needs none)."""
+    return build_step_layouts(constants, x) if _slab_grid(constants) else None
+
+
+def _step_fwd(constants, statics, state, stress, sort):
+    """The step on its branch. Returns (out_state, grid residuals, new_v,
+    new_C): the residuals are (slabs_mmv,) on the slab branch and
+    (grid_m, grid_mv) on the dense one (dense scatter -> grid op -> G2P
+    -> tail)."""
+    if _slab_grid(constants):
+        out, slabs_mmv, new_v, new_C = _step_fwd_slab(constants, statics, state, stress, sort)
+        return out, (slabs_mmv,), new_v, new_C
+    mass, b, affine = _p2g_terms(constants, statics, state, stress)
+    grid_m, grid_mv = _dense_forward(constants, state.x, mass, b, affine)
+    new_v, new_C = g2p_core(constants, state.x, grid_op(constants, grid_m, grid_mv))
+    out = _g2p_tail(constants, statics, state, new_v, new_C)
+    return out, (grid_m, grid_mv), new_v, new_C
+
+
 def _scrub(t: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(t, nan=0.0, posinf=0.0, neginf=0.0)
 
@@ -169,36 +258,56 @@ def _state_tuple(s: ParticleState):
     return (s.x, s.v, s.C, s.F)
 
 
-def _step_bwd_slab(constants, statics, state, stress, sort, slabs_mmv, new_v, new_C, g):
-    """Slab-space direct adjoint of ``_step_fwd_slab`` for the output
-    cotangent ``g`` (a ``ParticleState``). Returns the scrubbed
-    ``(d_state, d_stress)``."""
+def _grid_bwd_slab(constants, x, sort, slabs_mmv, mass, b, affine, d_new_v, A2):
+    """The slab branch's grid stages of the step adjoint: K1 as the exact
+    transpose of the slab gather (tap scatter per slab + halo merge), the
+    ``grid_op_slabs`` vjp, then K3 twice (the P2G scatter adjoint and the
+    G2P position adjoint). Returns (d_x_s, dgm, db, dA, d_x_g2p)."""
     nb = _cdiv(constants.num_grids, BLOCK)
     nbs = (nb, nb, nb)
+    d_slabs_v = p2g_slab_scatter(constants, x, None, d_new_v, A2, sort)
+    (slabs_v,), (d_slabs_mmv,), _ = _vjp(
+        lambda s_: grid_op_slabs(constants, s_, nbs), (slabs_mmv,), (d_slabs_v,)
+    )
+    d_x_s, dgm, db, dA = gather_from_slabs(
+        constants, x, d_slabs_mmv, mass, b, affine, derivs=True, sort=sort
+    )
+    d_x_g2p, _, _, _ = gather_from_slabs(
+        constants, x, slabs_v, None, d_new_v, A2, derivs=True, sort=sort
+    )
+    return d_x_s, dgm, db, dA, d_x_g2p
+
+
+def _grid_bwd_dense(constants, x, grid_m, grid_mv, mass, b, affine, d_new_v, A2):
+    """The dense branch's grid stages: the dense scatter as the exact
+    transpose of the G2P gather, the ``grid_op`` vjp, then the two
+    tap-space gathers. Returns (d_x_s, dgm, db, dA, d_x_g2p)."""
+    _, d_grid_v = _dense_forward(constants, x, None, d_new_v, A2)
+    (grid_v,), (d_m, d_mv), _ = _vjp(
+        lambda m_, mv_: grid_op(constants, m_, mv_), (grid_m, grid_mv), (d_grid_v,)
+    )
+    return _apic_bwd_dual_impl(constants, x, mass, b, affine, d_m, d_mv, d_new_v, A2, grid_v)
+
+
+def _step_bwd(constants, statics, state, stress, sort, grid_res, new_v, new_C, g):
+    """Direct adjoint of ``_step_fwd`` for the output cotangent ``g`` (a
+    ``ParticleState``), on the branch ``_step_fwd`` took. Returns the
+    scrubbed ``(d_state, d_stress)``."""
 
     def tail(x, v, C, F, v_, C_):
         return _state_tuple(_g2p_tail(constants, statics, ParticleState(x, v, C, F), v_, C_))
 
     _, d_tail, _ = _vjp(tail, (*_state_tuple(state), new_v, new_C), _state_tuple(g))
     d_new_v, d_new_C = d_tail[4], d_tail[5]
-
     kappa = 4.0 * constants.inv_dx * constants.inv_dx
     A2 = kappa * d_new_C
-    # G2P grid cotangent: K1 as the exact transpose of the slab gather
-    # (tap scatter per slab + halo merge), then the grid_op vjp.
-    d_slabs_v = p2g_slab_scatter(constants, state.x, None, d_new_v, A2, sort)
-    (slabs_v,), (d_slabs_mmv,), _ = _vjp(
-        lambda s_: grid_op_slabs(constants, s_, nbs), (slabs_mmv,), (d_slabs_v,)
-    )
-
-    # K3 twice: the P2G scatter adjoint and the G2P position adjoint.
     mass, b, affine = _p2g_terms(constants, statics, state, stress)
-    d_x_s, dgm, db, dA = gather_from_slabs(
-        constants, state.x, d_slabs_mmv, mass, b, affine, derivs=True, sort=sort
-    )
-    d_x_g2p, _, _, _ = gather_from_slabs(
-        constants, state.x, slabs_v, None, d_new_v, A2, derivs=True, sort=sort
-    )
+    if _slab_grid(constants):
+        d_x_s, dgm, db, dA, d_x_g2p = _grid_bwd_slab(
+            constants, state.x, sort, grid_res[0], mass, b, affine, d_new_v, A2)
+    else:
+        d_x_s, dgm, db, dA, d_x_g2p = _grid_bwd_dense(
+            constants, state.x, *grid_res, mass, b, affine, d_new_v, A2)
 
     def prep(x, v, C, F, sr):
         return _p2g_terms(constants, statics, ParticleState(x, v, C, F), sr)
@@ -213,15 +322,6 @@ def _step_bwd_slab(constants, statics, state, stress, sort, slabs_mmv, new_v, ne
     return d_state, _scrub(d_prep[4])
 
 
-def _require_slab_grid(constants: MPMConstants) -> None:
-    if constants.num_grids <= 24:
-        raise ValueError(
-            f"num_grids={constants.num_grids}: the dense grid path "
-            "(num_grids <= 24) is ported in a later slice; this slice runs "
-            "the slab branch (num_grids > 24) only"
-        )
-
-
 def mpm_step(
     constants: MPMConstants,
     statics: Statics,
@@ -229,32 +329,32 @@ def mpm_step(
     stress: torch.Tensor,
     sort=None,
 ) -> ParticleState:
-    """One MPM step, p2g -> grid_op -> g2p, on the slab branch.
-    ``sort`` may carry pre-built or refreshed ``StepLayouts``."""
-    _require_slab_grid(constants)
+    """One MPM step, p2g -> grid_op -> g2p, on the slab branch above 24
+    cells and the dense one otherwise. ``sort`` may carry pre-built or
+    refreshed ``StepLayouts`` (the dense branch ignores it)."""
     if sort is None:
-        sort = build_step_layouts(constants, state.x)
-    out, _, _, _ = _step_fwd_slab(constants, statics, state, stress, sort)
+        sort = _step_sort(constants, state.x)
+    out, _, _, _ = _step_fwd(constants, statics, state, stress, sort)
     return out
 
 
 class _MPMStepDiff(torch.autograd.Function):
-    """``mpm_step`` whose backward is ``_step_bwd_slab``."""
+    """``mpm_step`` whose backward is ``_step_bwd``."""
 
     @staticmethod
     def forward(ctx, constants, statics, sort, x, v, C, F, stress):
         state = ParticleState(x, v, C, F)
-        out, slabs_mmv, new_v, new_C = _step_fwd_slab(constants, statics, state, stress, sort)
-        ctx.save_for_backward(x, v, C, F, stress, slabs_mmv, new_v, new_C)
+        out, grid_res, new_v, new_C = _step_fwd(constants, statics, state, stress, sort)
+        ctx.save_for_backward(x, v, C, F, stress, new_v, new_C, *grid_res)
         ctx.step = (constants, statics, sort)
         return _state_tuple(out)
 
     @staticmethod
     def backward(ctx, gx, gv, gC, gF):
-        x, v, C, F, stress, slabs_mmv, new_v, new_C = ctx.saved_tensors
+        x, v, C, F, stress, new_v, new_C, *grid_res = ctx.saved_tensors
         constants, statics, sort = ctx.step
-        d_state, d_stress = _step_bwd_slab(
-            constants, statics, ParticleState(x, v, C, F), stress, sort, slabs_mmv,
+        d_state, d_stress = _step_bwd(
+            constants, statics, ParticleState(x, v, C, F), stress, sort, grid_res,
             new_v, new_C, ParticleState(gx, gv, gC, gF),
         )
         return (None, None, None, *_state_tuple(d_state), d_stress)
@@ -268,11 +368,10 @@ def mpm_step_diff(
     sort=None,
 ) -> ParticleState:
     """``mpm_step`` with the reference's backward: the direct piece
-    adjoint of ``_step_bwd_slab`` with every outgoing cotangent
+    adjoint of ``_step_bwd`` with every outgoing cotangent
     NaN/Inf-scrubbed. ``sort`` is not differentiated."""
-    _require_slab_grid(constants)
     if sort is None:
-        sort = build_step_layouts(constants, state.x)
+        sort = _step_sort(constants, state.x)
     return ParticleState(*_MPMStepDiff.apply(constants, statics, sort, *_state_tuple(state), stress))
 
 
@@ -285,7 +384,7 @@ def trainable_params(material) -> list:
 
 
 class _PackedSubstep(torch.autograd.Function):
-    """elasticity -> slab step -> plasticity; the material parameters
+    """elasticity -> MPM step -> plasticity; the material parameters
     are explicit inputs so their gradients flow."""
 
     @staticmethod
@@ -293,22 +392,22 @@ class _PackedSubstep(torch.autograd.Function):
         constants, statics, elasticity, plasticity = step
         state = ParticleState(x, v, C, F)
         stress = elasticity(F)
-        out, slabs_mmv, new_v, new_C = _step_fwd_slab(constants, statics, state, stress, sort)
+        out, grid_res, new_v, new_C = _step_fwd(constants, statics, state, stress, sort)
         f2 = out.F
-        ctx.save_for_backward(x, v, C, F, stress, slabs_mmv, new_v, new_C, f2)
+        ctx.save_for_backward(x, v, C, F, stress, new_v, new_C, f2, *grid_res)
         ctx.step, ctx.sort = step, sort
         return out.x, out.v, out.C, plasticity(f2)
 
     @staticmethod
     def backward(ctx, gx, gv, gC, gF):
-        x, v, C, F, stress, slabs_mmv, new_v, new_C, f2 = ctx.saved_tensors
+        x, v, C, F, stress, new_v, new_C, f2, *grid_res = ctx.saved_tensors
         constants, statics, elasticity, plasticity = ctx.step
         e_params, p_params = trainable_params(elasticity), trainable_params(plasticity)
         # Each material's vjp from a recompute of its forward.
         _, (d_f2,), d_pp = _vjp(plasticity, (f2,), (gF,), p_params)
         state = ParticleState(x, v, C, F)
-        d_s, d_stress = _step_bwd_slab(
-            constants, statics, state, stress, ctx.sort, slabs_mmv, new_v, new_C,
+        d_s, d_stress = _step_bwd(
+            constants, statics, state, stress, ctx.sort, grid_res, new_v, new_C,
             ParticleState(gx, gv, gC, d_f2),
         )
         _, (d_f_e,), d_pe = _vjp(elasticity, (F,), (d_stress,), e_params)
@@ -316,15 +415,16 @@ class _PackedSubstep(torch.autograd.Function):
 
 
 def make_packed_substep(constants: MPMConstants, statics: Statics, elasticity, plasticity):
-    """One grounding substep (elasticity net -> slab step -> plasticity
+    """One grounding substep (elasticity net -> MPM step -> plasticity
     net) as a single ``torch.autograd.Function``. ``elasticity`` and
     ``plasticity`` are callables on F; where they are ``nn.Module``s,
-    their parameters that require grad are the Function's inputs."""
-    _require_slab_grid(constants)
+    their parameters that require grad are the Function's inputs. The
+    substep takes the state and its step layouts (None builds them where
+    the branch needs them)."""
 
     def substep(s: ParticleState, layouts) -> ParticleState:
         if layouts is None:
-            layouts = build_step_layouts(constants, s.x)
+            layouts = _step_sort(constants, s.x)
         e_params, p_params = trainable_params(elasticity), trainable_params(plasticity)
         step = (constants, statics, elasticity, plasticity)
         out = _PackedSubstep.apply(step, layouts, *_state_tuple(s), *e_params, *p_params)

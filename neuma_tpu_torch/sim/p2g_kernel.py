@@ -13,7 +13,8 @@ and packed into the same 48-column payload. Two kernels run on it:
   the transpose of the G2P gather.
 * K2, ``run_apic_gather(derivs=False)`` (``csrc/g2p.cu``): the 27-tap
   G2P gather, the port of ``_make_gather_kernel(derivs=False)``; it
-  returns (rows, 16) = dgm | db (3) | dA (9) | 0 (3).
+  returns (rows, 16) = dgm | db (3) | dA (9) | 0 (3). A CTA takes half a
+  chunk, three threads per row (one per x tap).
 * K3, ``run_apic_gather(derivs=True)`` (``csrc/g2p_bwd.cu``): the same
   gather plus the spline-derivative position adjoint in columns 13-15,
   the port of ``_make_gather_kernel(derivs=True)``; the step backward
@@ -410,11 +411,11 @@ def run_apic_gather(
     out = torch.empty((rows, _OUT_COLS), dtype=torch.float32, device=payload.device)
     stream = kernels.stream(payload.device)
     ptrs = (payload.data_ptr(), slabs.data_ptr(), c2b.data_ptr(), rows, rows // M)
+    per_cta = lib.neuma_g2p_derivs_rows_per_cta() if derivs else lib.neuma_g2p_rows_per_cta()
+    if (rows // M) % per_cta or payload.data_ptr() % 16:
+        raise ValueError(f"{'K3' if derivs else 'K2'} takes 16-byte aligned chunks of a multiple "
+                         f"of {per_cta} rows, got {rows // M}")
     if derivs:
-        per_cta = lib.neuma_g2p_derivs_rows_per_cta()
-        if (rows // M) % per_cta or payload.data_ptr() % 16:
-            raise ValueError(f"K3 takes 16-byte aligned chunks of a multiple of {per_cta} rows, "
-                             f"got {rows // M}")
         name, count = "neuma_g2p_gather_derivs", "g2p_derivs"
         rc = lib.neuma_g2p_gather_derivs(*ptrs, 1.0 / inv_dx, float(inv_dx), out.data_ptr(), stream)
     else:

@@ -4,7 +4,7 @@ Counterpart of ``neuma_tpu/train/grounding.py`` (``GroundingScene``,
 ``_remat_policy``, ``make_rollout_loss`` for ``grid_mode="replicated"``,
 ``rollout_decay_weights``, ``decay_rate_for_epoch``, the error classes,
 ``optimize_init_velocity`` and ``finetune_constitutive``). Per frame:
-``substeps`` x (elasticity MLP -> slab MPM step -> plasticity MLP, one
+``substeps`` x (elasticity MLP -> MPM step -> plasticity MLP, one
 ``make_packed_substep`` Function), then binding, then one Particle-GS
 render per view (the unrolled per-view loop the JAX package runs for up
 to 8 views without a mesh), then the pixel loss weighted by
@@ -52,8 +52,8 @@ from ..render.camera import Camera
 from ..render.gaussians import GaussianPack, create_from_points
 from ..render.raster_kernel import CHUNK as RASTER_CHUNK
 from ..render.rasterize import RasterConfig, rasterize_with_aux
-from ..sim.mpm import make_packed_substep, trainable_params
-from ..sim.p2g_kernel import build_step_layouts, refresh_step_layouts
+from ..sim.mpm import _step_sort, make_packed_substep, trainable_params
+from ..sim.p2g_kernel import refresh_step_layouts
 from ..sim.rollout import denormalize_points
 from .losses import l1_loss, l2_loss
 from .optim import apply_updates, clip_by_global_norm_strict, radam
@@ -170,7 +170,8 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
 
     def frame_body(state, layouts, de_x_prev, g_prev, gt_frame):
         for _ in range(scene.substeps):
-            layouts, _ = refresh_step_layouts(constants, state.x, layouts)
+            if layouts is not None:  # the slab branch's block sort, amortized
+                layouts, _ = refresh_step_layouts(constants, state.x, layouts)
             state = substep(state, layouts)
         de_x = denormalize_points(state.x, scene.size, scene.center)
         means3d = apply_binding_xyz(table, de_x, de_x_prev, g_prev)
@@ -192,7 +193,7 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         state = ParticleState.initial(scene.init_x, v0)
         de_x_prev = denormalize_points(scene.init_x, scene.size, scene.center)
         g_prev = k_xyz0
-        layouts = build_step_layouts(constants, scene.init_x)
+        layouts = _step_sort(constants, scene.init_x)  # None on a dense grid
         frame_losses, overflows = [], []
         for f in range(n_frames):
             args = (state, layouts, de_x_prev, g_prev, gt_images[f])

@@ -12,7 +12,10 @@ output group); K4 at atol 2e-5 on T and C with ``last`` equal; K5 at a
 scaled 1e-5 per column (the kernel starts each segment of a walk from
 per-segment summaries and takes one reciprocal per visit, and sums the
 256 pixels in another order). K1, K3, K4 and K5 also run twice on the
-same inputs and must agree bit for bit.
+same inputs and must agree bit for bit, and so do K2 and the dense-grid
+MPM step (plain PyTorch on the card, ``num_grids <= 24``), which is held
+to the same code on the CPU at a scaled 1e-5 forward and 1e-4 backward
+(cuBLAS contracts the tap sums in other orders than the CPU).
 """
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ import torch
 from neuma_tpu_torch.core.types import MPMConstants, ParticleState, Statics
 from neuma_tpu_torch.render import raster_kernel as rk
 from neuma_tpu_torch.sim import p2g_kernel as pk
-from neuma_tpu_torch.sim.mpm import _p2g_terms
+from neuma_tpu_torch.sim.mpm import _p2g_terms, mpm_step_diff
 
 
 @pytest.fixture
@@ -72,7 +75,9 @@ def test_g2p_kernel_matches_plain(cuda, g, n):
     _, NB = pk._num_blocks(c)
     slabs = torch.randn((NB, 4, 16, 16, 16), generator=torch.Generator().manual_seed(g)).to(cuda)
     args = (payload, slabs, lay.gather.c2b, float(c.inv_dx))
-    assert _scaled_err(pk.run_apic_gather(*args), pk.run_apic_gather_plain(*args)) <= 1e-5
+    out = pk.run_apic_gather(*args)
+    assert _scaled_err(out, pk.run_apic_gather_plain(*args)) <= 1e-5
+    assert torch.equal(out, pk.run_apic_gather(*args))  # bitwise repeatable
 
 
 @pytest.mark.cuda
@@ -141,6 +146,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     payload = torch.zeros((pk.CHUNK, 48), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         pk.run_p2g_fwd(payload, torch.zeros(1, dtype=torch.int32, device=cuda), 1)
+    slabs = torch.zeros((1, 4, 16, 16, 16), device=cuda)
+    c2b = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for derivs in (False, True):  # K2 and K3
+        misaligned = torch.zeros(pk.CHUNK * 48 + 1, device=cuda)[1:].view(pk.CHUNK, 48)
+        with pytest.raises(ValueError, match="aligned"):
+            pk.run_apic_gather(misaligned, slabs, c2b, 32.0, derivs)
+        odd_chunk = torch.zeros((pk.CHUNK - 40, 48), device=cuda)  # 88 rows
+        with pytest.raises(ValueError, match="multiple"):
+            pk.run_apic_gather(odd_chunk, slabs, c2b, 32.0, derivs)
     with pytest.raises(ValueError, match="int32"):
         rk.composite_fwd(torch.zeros((32, 9), device=cuda), torch.zeros(2, dtype=torch.int64, device=cuda),
                          torch.zeros(1, dtype=torch.int32, device=cuda), 1)
@@ -284,3 +298,65 @@ def test_g2p_derivs_kernel_clipped_taps_and_padding(cuda, role):
     for cols in (slice(0, 1), slice(1, 4), slice(4, 13), slice(13, 16)):
         assert _scaled_err(out[:, cols], ref[:, cols]) <= 1e-5, cols
     assert torch.equal(out, pk.run_apic_gather(*args))  # bitwise repeatable
+
+
+@pytest.mark.cuda
+def test_g2p_kernel_clipped_taps_and_padding(cuda):
+    """K2 on a payload with padding rows and with tap lines moved outside
+    0..15 (-1, 16) on some rows: those taps read zero, padding rows give
+    zero rows, and the result repeats bit for bit."""
+    c, lay, payload = _payload(32, 3000, cuda, seed=8)
+    _, NB = pk._num_blocks(c)
+    live = torch.nonzero(payload[:, 0:9].abs().sum(1) > 0).squeeze(1)
+    assert live.numel() < payload.shape[0]  # padding rows
+    payload = payload.clone()
+    for k, (col, line) in enumerate([(pk._L0 + 2, 16.0), (pk._L0 + 3, -1.0), (pk._L0 + 8, 16.0)]):
+        payload[live[k::7], col] = line  # one x, one y, one z tap clipped
+    slabs = torch.randn((NB, 4, 16, 16, 16), generator=torch.Generator().manual_seed(9)).to(cuda)
+    args = (payload, slabs, lay.gather.c2b, float(c.inv_dx))
+    out, ref = pk.run_apic_gather(*args), pk.run_apic_gather_plain(*args)
+    assert bool((out[payload[:, 0:9].abs().sum(1) == 0] == 0).all())
+    assert bool((out[:, 13:] == 0).all())
+    for cols in (slice(0, 1), slice(1, 4), slice(4, 13)):
+        assert _scaled_err(out[:, cols], ref[:, cols]) <= 1e-5, cols
+    assert torch.equal(out, pk.run_apic_gather(*args))  # bitwise repeatable
+
+
+def _dense_step(device, n=3000, seed=10):
+    """One dense-grid step (num_grids = 24) forward and its direct adjoint
+    for seeded cotangents; 100 particles sit within a cell of a wall."""
+    rng = np.random.default_rng(seed)
+    g = 24
+    x = 0.3 + 0.4 * rng.random((n, 3))
+    near = (0.1 + 0.9 * rng.random(100)) / g
+    x[np.arange(100), rng.integers(0, 3, 100)] = np.where(rng.random(100) < 0.5, near, 1 - near)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    c = MPMConstants(num_grids=g, bound=2, bc="noslip", dt=f(8e-4), gravity=f([0, -9.8, 0]), eps=f(6e-7))
+    statics = Statics(vol=f(np.full(n, 2e-8)), rho=f(np.full(n, 1e3)), clip_bound=f(np.full(n, 0.1)),
+                      enabled=torch.ones(n, dtype=torch.int32, device=device))
+    leaves = [f(x), f(0.3 * rng.standard_normal((n, 3))), f(0.5 * rng.standard_normal((n, 3, 3))),
+              f(np.eye(3) + 0.02 * rng.standard_normal((n, 3, 3))), f(1e-3 * rng.standard_normal((n, 3, 3)))]
+    leaves = [t.requires_grad_(True) for t in leaves]
+    out = mpm_step_diff(c, statics, ParticleState(*leaves[:4]), leaves[4])
+    outs = [out.x, out.v, out.C, out.F]
+    cots = [f(rng.standard_normal(tuple(o.shape))) for o in outs]
+    grads = torch.autograd.grad(outs, leaves, cots)
+    return [o.detach() for o in outs], list(grads)
+
+
+@pytest.mark.cuda
+def test_dense_step_matches_cpu_and_repeats(cuda):
+    """The dense step forward (x, v, C, F) within a scaled 1e-5 and its
+    backward (d x, v, C, F, stress) within a scaled 1e-4 of the same code
+    on the CPU; two card runs are bitwise equal (the ordered scatter
+    uses no atomics)."""
+    outs_cpu, grads_cpu = _dense_step("cpu")
+    outs_a, grads_a = _dense_step(cuda)
+    outs_b, grads_b = _dense_step(cuda)
+    for a, r in zip(outs_a, outs_cpu):
+        assert _scaled_err(a.cpu(), r) <= 1e-5
+    for a, r in zip(grads_a, grads_cpu):
+        assert float(r.abs().max()) > 0
+        assert _scaled_err(a.cpu(), r) <= 1e-4
+    for a, b in zip(outs_a + grads_a, outs_b + grads_b):
+        assert torch.equal(a, b)

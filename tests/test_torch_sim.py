@@ -183,12 +183,6 @@ def test_mpm_step_matches_jax(step_refs, bc):
         _scaled_close(a, getattr(dense, name), 1e-5, f"{name} vs dense f32")
 
 
-def test_small_grid_raises():
-    tc, tst, ts, tstress = _to_torch(*_scene(n=200, g=24))
-    with pytest.raises(ValueError, match="later slice"):
-        tmpm.mpm_step(tc, tst, ts, tstress)
-
-
 def test_packed_substep_applies_both_materials(scene):
     (_, _, _, _), (tc, tst, ts, tstress) = scene
     calls = []
