@@ -61,12 +61,33 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     1e-3, the bounds of phases 6 and 10), two card value-and-grads with a
     bitwise-equal loss and gradient leaves, K1-K3 never launched and K4/K5
     launched on that path, and ms/frame forward and forward + backward.
+13. The training CLI, ``neuma_tpu_torch.apps.finetune.main``, end to end
+    from ``configs/synthetic/finetune-bb.yaml`` at its widths (SH degree
+    3, InvariantFull (64, 64) with LoRA r 16, ``num_grids`` 32, max_pairs
+    262,144, volumetric mesh sampling at resolution 32 by the native
+    sampler, one 800x800 view ``d_2`` on white) on a BouncyBall-like scene
+    it fabricates with the port's own code (an icosphere mesh, ~10,000
+    Gaussians). Depth is cut: 5 dataset steps (4 frames per stage), 2
+    epochs per stage, random base weights (``APP_CUTS``). It prints the
+    seconds of data preparation and of each stage, checks finite losses,
+    the artifacts (``init.npz``, the LoRA ring, ``metrics.jsonl`` rows of
+    both stages, ``train_state.npz``) and K1-K5 each launched during the
+    CLI run, and that the native sampler (not its Python fallback) ran;
+    then holds K1-K5 to their plain versions, as phase 2 does, on inputs
+    from the CLI's stage-2 scene; then reruns with ``resume=true
+    constitution.num_epochs=3`` (the full train state restored, one more
+    finite epoch); then runs a small copy of the config on the card and
+    on the CPU (``app_card_vs_cpu``: losses within rtol 1e-4 per epoch,
+    the prepared particles bitwise equal, the bindings equal, the stage-1
+    velocity within a scaled 1e-3, and one value-and-grad of the stage-2
+    loss at the card run's end state plus a strain rate within the bounds
+    of phase 10).
 
 The scenes follow ``bench.py``'s recipe with random weights from seed 0.
 Output: one JSON line ``{"kernels": [...]}`` (launches counted on the
-headline training path), the card's ``nvidia-smi`` name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``. Details go to
-``build/chip_smoke.json``.
+headline training path; ``launches_app`` in the CLI run of phase 13),
+the card's ``nvidia-smi`` name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -889,6 +910,277 @@ def dense_phase(report, init_v):
     return ok
 
 
+APP_CONFIG = REPO / "configs" / "synthetic" / "finetune-bb.yaml"
+# The app phase's cuts of finetune-bb.yaml: depth only (the widths stay).
+APP_CUTS = {
+    "dataset steps": "5 (4 frames per stage; the config trains on 400 and 20)",
+    "epochs": "2 per stage (the config runs 200 and 1000), then 1 resumed",
+    "pretrained_ckpt": "null: random base weights from seed 42 (jelly_0300.pt is not in the repo)",
+    "data": "a fabricated BouncyBall-like scene: an icosphere mesh, ~10,000 Gaussians in it, "
+            "one 800x800 view d_2 of a falling disk on white",
+}
+# The card-vs-CPU copy: small enough for the CPU, still on the slab grid.
+APP_SMALL = ["sim.num_grids=32", "particle_data.mesh_sample_mode=uniform",
+             "particle_data.mesh_sample_resolution=10",
+             "constitution.elasticity.layer_widths=[16, 16]",
+             "constitution.plasticity.layer_widths=[16, 16]",
+             "constitution.lora.r=4", "constitution.lora.alpha=4"]
+
+
+def fabricate_app_scene(root: Path, n_gaussians: int, size: int, n_steps: int, seed: int = 0):
+    """A BouncyBall-like scene on disk, made with the port's own code: an
+    icosphere mesh (``mesh.obj``) inside the config's ``ori_bounds``,
+    ``n_gaussians`` SH-3 Gaussians in the ball (``kernels.ply``), and one
+    view ``d_2`` of ``n_steps`` RGBA frames of a disk falling across a
+    transparent background, with the NeuMA-Synthetic camera JSON."""
+    from PIL import Image
+
+    from neuma_tpu_torch.data.mesh import TriMesh, make_icosphere
+    from neuma_tpu_torch.render.camera import Camera, fov2focal
+    from neuma_tpu_torch.render.gaussians import create_from_points
+
+    rng = np.random.default_rng(seed)
+    center, radius = np.array([0.0, 0.45, 0.0]), 0.2
+    ico = make_icosphere(radius=radius, subdivisions=3)
+    TriMesh(vertices=ico.vertices + center, faces=ico.faces).export_obj(root / "mesh.obj")
+    d = rng.standard_normal((n_gaussians, 3))
+    d *= (radius * 0.97 * rng.random((n_gaussians, 1)) ** (1 / 3)) / np.linalg.norm(d, axis=1,
+                                                                                      keepdims=True)
+    with torch.no_grad():
+        pack = create_from_points((center + d).astype(np.float32),
+                                  rng.random((n_gaussians, 3)).astype(np.float32), sh_degree=3,
+                                  device="cuda" if torch.cuda.is_available() else "cpu")
+    pack.to_ply(root / "kernels.ply")
+
+    sub = root / "dataset" / "data_dynamic"
+    sub.mkdir(parents=True)
+    cam = Camera.look_at(eye=center + np.array([0.0, 0.15, -1.5]), target=center, fov=0.8,
+                         width=size, height=size)
+    c2w = np.linalg.inv(cam.world_view.numpy().T.astype(np.float64))
+    c2w[:3, 1:3] *= -1  # COLMAP -> OpenGL axes, undone by the reader
+    focal = fov2focal(cam.fov_x, size)
+    yy, xx = np.mgrid[:size, :size]
+    meta = []
+    for step in range(n_steps):
+        cy, cx = size * (0.45 + 0.02 * step), size * 0.5
+        inside = (yy - cy) ** 2 + (xx - cx) ** 2 < (0.17 * size) ** 2
+        rgba = np.zeros((size, size, 4), np.uint8)
+        rgba[inside] = (200, 60, 40, 255)
+        name = f"d_2_{step:03d}.png"
+        Image.fromarray(rgba, "RGBA").save(sub / name)
+        meta.append({"file_path": f"./data_dynamic/{name}", "c2w": c2w.tolist(),
+                     "intrinsic": [[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]]})
+    (root / "dataset" / "data_dynamic.json").write_text(json.dumps(meta))
+
+
+def app_config(root: Path, name: str, extra=()) -> Path:
+    """finetune-bb.yaml with the phase's cuts and the fabricated paths."""
+    from neuma_tpu_torch.utils.config import load_config
+
+    cfg = load_config(APP_CONFIG, [
+        f"root={root / 'logs'}", f"name={name}", f"data_root={root / 'sim_data'}",
+        "pretrained_ckpt=null", f"gaussian.kernels_path={root / 'kernels.ply'}",
+        f"video_data.data.path={root / 'dataset'}", f"particle_data.mesh_path={root / 'mesh.obj'}",
+        "constitution.num_epochs=2", "constitution.num_frames=4",
+        "velocity.num_epochs=2", "velocity.num_frames=4", *extra])
+    path = root / f"{name}.yaml"
+    cfg.save(path)
+    return path
+
+
+def _stage_losses(exp_root: Path):
+    rows = [json.loads(line) for line in (exp_root / "metrics.jsonl").open()]
+    return ([r["loss"] for r in rows if r["stage"] == 1.0],
+            [r["loss_rgb"] for r in rows if r["stage"] == 2.0], rows)
+
+
+# A pure strain rate (1/s, symmetric) added to the stage-1 velocity in
+# app_value_and_grad: the CLI's cut run stays rest-shaped (F = I up to
+# rounding, where a no-bias material with normalized input has zero
+# gradient), so without it the LoRA gradients would be rounding only.
+APP_STRAIN_RATE = torch.tensor([[2.0, 1.0, 0.0], [1.0, -1.0, 0.5], [0.0, 0.5, -1.0]])
+
+
+def app_value_and_grad(cfg, data_root: Path, init_v, lora) -> dict:
+    """One value-and-grad of the CLI's stage-2 loss (``finetune.stage_scene``
+    from ``data_root``, the LoRA leaves ``lora`` overlaid, every frame
+    weighted 1) on the card and on the CPU, from the per-particle velocity
+    ``init_v + APP_STRAIN_RATE (x - mean x)``: the loss's relative gap and
+    each gradient leaf's scaled error ([d init_v] + the LoRA leaves)."""
+    from neuma_tpu_torch.apps import common, finetune
+    from neuma_tpu_torch.data.readers import VideoDataset
+
+    out, v0 = {}, None
+    for device in ("cuda", "cpu"):
+        e, p = common.build_materials(cfg)
+        scene, gt, _ = finetune.stage_scene(cfg, data_root, VideoDataset(cfg.video_data.to_dict()),
+                                            e, p, "constitution", device)
+        common.overlay_lora(scene.elasticity, lora["elasticity"])
+        common.overlay_lora(scene.plasticity, lora["plasticity"])
+        _, n_e = lora_params(scene)
+        if v0 is None:
+            x = scene.init_x.cpu()
+            v0 = init_v.reshape(1, 3) + (x - x.mean(0)) @ APP_STRAIN_RATE.T
+        loss, _, grads = value_and_grad_fn(scene, device)(
+            v0.to(device), torch.ones(gt.shape[0], device=device), gt)
+        out[device] = (float(loss), [g.cpu() for g in grads], grad_norms(grads, n_e))
+    (l_gpu, g_gpu, norms), (l_cpu, g_cpu, _) = out["cuda"], out["cpu"]
+    errs = [scaled_err(a, b) for a, b in zip(g_gpu, g_cpu)]
+    return dict(loss_card=l_gpu, loss_cpu=l_cpu, loss_rel_gap=abs(l_gpu - l_cpu) / abs(l_cpu),
+                grad_errs=errs, grad_norms_card=norms)
+
+
+def app_card_vs_cpu(root: Path) -> dict:
+    """The small copy of the app config: the CLI on the card (its data
+    prepared on the card), the same preparation on the CPU into another
+    folder (particles.ply bitwise, bindings.npz weights equal and indices
+    equal where the weight is above 0), and the CLI on the CPU from the
+    card's prepared folder. Returns both runs' per-epoch losses and the
+    largest relative gap, the stage-1 init_v's scaled gap, and
+    ``app_value_and_grad`` at the card run's end state."""
+    from neuma_tpu_torch.apps import common, finetune
+    from neuma_tpu_torch.data.ply import load_ply_points
+    from neuma_tpu_torch.utils.config import load_config
+
+    root.mkdir(parents=True, exist_ok=True)
+    fabricate_app_scene(root, n_gaussians=300, size=64, n_steps=5, seed=1)
+    cfg_path = app_config(root, "small", APP_SMALL)
+    finetune.main(["-c", str(cfg_path)])
+    common.run_data_preparation(load_config(cfg_path), root / "sim_data_cpu", device="cpu")
+    finetune.main(["-c", str(cfg_path), "--set", "name=small_cpu"], device="cpu")
+    card, cpu = (_stage_losses(root / "logs" / n)[:2] for n in ("small", "small_cpu"))
+    gaps = [abs(a - b) / abs(b) for xs, ys in zip(card, cpu) for a, b in zip(xs, ys)]
+    a, b = (np.load(root / d / "bindings.npz") for d in ("sim_data", "sim_data_cpu"))
+    live = b["weights"] > 0
+    tunes = [root / "logs" / n / "finetune" for n in ("small", "small_cpu")]
+    init_v = [torch.as_tensor(np.load(t / "init.npz")["init_v"]) for t in tunes]
+    # The LoRA files themselves are not compared: at this depth the stage-2
+    # gradient is rounding-level (the scene stays rest-shaped), so their B
+    # leaves differ by rounding; the value-and-grad below holds the LoRA
+    # gradient instead.
+    lora_card, _ = common.load_latest_lora(tunes[0])
+    return dict(
+        init_v_card=init_v[0].tolist(), init_v_cpu=init_v[1].tolist(),
+        init_v_err=scaled_err(*init_v),
+        value_and_grad=app_value_and_grad(load_config(cfg_path), root / "sim_data", init_v[0],
+                                          lora_card),
+        card=card, cpu=cpu, max_rel_gap=max(gaps), n_losses=len(gaps),
+        particles_bitwise=(root / "sim_data" / "particles.ply").read_bytes()
+        == (root / "sim_data_cpu" / "particles.ply").read_bytes(),
+        bindings_equal=bool(np.array_equal(a["weights"], b["weights"])
+                            and np.array_equal(a["indices"][live], b["indices"][live])),
+        n_kernels=len(np.load(root / "sim_data" / "n_particles.npy")),
+        n_particles=len(load_ply_points(root / "sim_data" / "particles.ply")),
+    )
+
+
+def app_phase(report, rec) -> bool:
+    """Phase 13: the training CLI end to end on the card (see the module
+    docstring)."""
+    import shutil
+
+    from neuma_tpu_torch import kernels
+    from neuma_tpu_torch.apps import common, finetune
+    from neuma_tpu_torch.data import sampling
+    from neuma_tpu_torch.data.ply import load_ply_points
+    from neuma_tpu_torch.data.readers import VideoDataset
+    from neuma_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "chip_smoke_app"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for k, v in APP_CUTS.items():
+        log(f"[app] cut: {k}: {v}")
+    t0 = time.perf_counter()
+    fabricate_app_scene(root, n_gaussians=10000, size=800, n_steps=5)
+    fab_s = time.perf_counter() - t0
+    cfg_path = app_config(root, "bb")
+    cfg = load_config(cfg_path)
+    t0 = time.perf_counter()
+    common.run_data_preparation(cfg, root / "sim_data", device="cuda")
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    route = sampling.last_volumetric_route
+    n_particles = len(load_ply_points(root / "sim_data" / "particles.ply"))
+
+    kernels.reset_launches()
+    t0 = time.time()
+    result = finetune.main(["-c", str(cfg_path)])
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    launches = dict(kernels.launches)
+    exp = root / "logs" / "bb"
+    v_losses, c_losses, rows = _stage_losses(exp)
+    end_1 = max(r["time"] for r in rows if r["stage"] == 1.0)
+    stage1_s = end_1 - t0
+    stage2_s = max(r["time"] for r in rows if r["stage"] == 2.0) - end_1
+    tune = exp / "finetune"
+    files = ["init.npz", "0001_lora.npz", "0002_lora.npz", "train_state.npz"]
+    missing = [f for f in files if not (tune / f).is_file()]
+    finite = all(np.isfinite(v_losses + c_losses + result.losses))
+    log(f"[app] {n_particles} particles, {cfg.gaussian.max_particles} per kernel; fabricate "
+        f"{fab_s:.1f} s, prep {prep_s:.2f} s (volumetric res 32 by the {route} sampler + "
+        f"two-pass binding on the card), "
+        f"stage 1 {stage1_s:.2f} s (dataset read, scene, 2 epochs x 4 frames), stage 2 "
+        f"{stage2_s:.2f} s (2 epochs x 4 frames), whole CLI {main_s:.2f} s")
+    log(f"[app] losses stage 1 {v_losses} stage 2 {c_losses}; launches {launches}; "
+        f"missing artifacts {missing}")
+
+    # every kernel against its plain version at the CLI's own shapes (the
+    # stage-2 scene the CLI trained on; random state and cotangents)
+    e, p = common.build_materials(cfg)
+    scene, _, _ = finetune.stage_scene(cfg, root / "sim_data", VideoDataset(cfg.video_data.to_dict()),
+                                       e, p, "constitution", "cuda")
+    checks_ok = check_and_time("app", kernel_inputs(scene, torch.Generator().manual_seed(0)), rec)
+    del scene
+
+    t0 = time.perf_counter()
+    resumed = finetune.main(["-c", str(cfg_path), "--set", "resume=true",
+                             "constitution.num_epochs=3"])
+    resume_s = time.perf_counter() - t0
+    text = (exp / "log.txt").read_text()
+    steps_2 = [r["step"] for r in _stage_losses(exp)[2] if r["stage"] == 2.0]
+    resumed_ok = ("Resuming full train state" in text and len(resumed.losses) == 1
+                  and bool(np.isfinite(resumed.losses[0])) and steps_2 == [1, 2, 3])
+    log(f"[app] resume=true, num_epochs 3: full train state restored "
+        f"{'Resuming full train state' in text}, stage-2 steps {steps_2}, epoch 3 loss "
+        f"{resumed.losses}; {resume_s:.2f} s")
+
+    t0 = time.perf_counter()
+    small = app_card_vs_cpu(root / "small")
+    small_s = time.perf_counter() - t0
+    log(f"[app:small] 64x64 view, uniform res 10, (16, 16), r 4, num_grids 32: "
+        f"{small['n_kernels']} kernels, {small['n_particles']} particles; losses card {small['card']} cpu {small['cpu']}; "
+        f"max rel gap {small['max_rel_gap']:.2e} over {small['n_losses']} epochs (bound 1e-4); "
+        f"particles.ply bitwise {small['particles_bitwise']}, bindings.npz equal "
+        f"{small['bindings_equal']}; {small_s:.1f} s")
+    vg = small["value_and_grad"]
+    log(f"[app:small] stage-1 init_v card {small['init_v_card']} cpu {small['init_v_cpu']}: "
+        f"scaled gap {small['init_v_err']:.2e} (bound {GRAD_TOL:.0e})")
+    log(f"[app:small] value-and-grad at the card run's end state: loss card {vg['loss_card']:.9f} "
+        f"cpu {vg['loss_cpu']:.9f} rel gap {vg['loss_rel_gap']:.2e} (bound 1e-4); gradient scaled "
+        f"error per leaf {[f'{x:.2e}' for x in vg['grad_errs']]} (bound {GRAD_TOL:.0e}); card "
+        f"grad norms {vg['grad_norms_card']}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[app] phase {phase_s:.1f} s")
+    report["app"] = dict(
+        cuts=APP_CUTS, n_particles=n_particles, fabricate_s=fab_s, prep_s=prep_s,
+        stage1_s=stage1_s, stage2_s=stage2_s, cli_s=main_s, resume_s=resume_s, small_s=small_s,
+        seconds=phase_s, losses_stage1=v_losses, losses_stage2=c_losses, launches=launches,
+        resumed_loss=resumed.losses, small=small, volumetric_route=route)
+    ok = (checks_ok and route == "native" and finite and not missing
+          and all(launches.get(k, 0) > 0 for k in KERNELS)
+          and len(v_losses) == len(c_losses) == 2 and resumed_ok
+          and small["max_rel_gap"] <= 1e-4 and small["particles_bitwise"]
+          and small["bindings_equal"] and small["init_v_err"] <= GRAD_TOL
+          and small["value_and_grad"]["loss_rel_gap"] <= 1e-4
+          and max(small["value_and_grad"]["grad_errs"]) <= GRAD_TOL)
+    if not ok:
+        log("[app] FAILED")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -997,6 +1289,8 @@ def main() -> int:
     ok, launches = training_phases(scenes, report, init_v)
     # 12. the dense-grid step
     ok_dense = ok and dense_phase(report, init_v)
+    # 13. the training CLI
+    ok_app = ok_dense and app_phase(report, rec)
     report.update(kernels=rec, launches_train_headline=launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "build"
@@ -1005,7 +1299,7 @@ def main() -> int:
     if not ok:
         log("[train] FAILED")
         return 1
-    if not ok_dense:
+    if not (ok_dense and ok_app):
         return 1
 
     sources = {
@@ -1022,6 +1316,7 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches.get(name, 0), "launches_forward": launches_fwd.get(name, 0),
+            "launches_app": report["app"]["launches"].get(name, 0),
             "check": "pass", "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

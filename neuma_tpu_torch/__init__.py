@@ -7,10 +7,13 @@ found by path. Plain tensor code is PyTorch; every Pallas TPU kernel on
 the ported path is a hand-written CUDA kernel under ``csrc/``, built
 with ``nvcc`` on first use (``kernels.py``) and bound through ``ctypes``.
 
-Ported so far: the forward grounding rollout
-(``train/grounding.py::make_rollout_loss``) — elasticity MLP -> slab
-MPM step (P2G kernel, grid op, G2P kernel) -> plasticity MLP ->
-binding -> Particle-GS rasterizer (tile-composite kernel).
+Ported so far: the grounding rollout (``train/grounding.py::make_rollout_loss``:
+elasticity MLP -> MPM step (slab branch through the P2G and G2P kernels,
+dense branch for small grids) -> plasticity MLP -> binding -> Particle-GS
+rasterizer (tile-composite kernels)), its BPTT backward, both trainers,
+and the training CLI ``apps/finetune.py`` with the config, data and
+checkpoint modules it reaches (``utils``, ``data``, ``sim/initializers.py``,
+``train/checkpoint.py``, ``parallel/distributed.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without an explicit CPU request they raise.

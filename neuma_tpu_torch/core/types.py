@@ -1,8 +1,9 @@
 """Simulation state containers.
 
-Counterpart of ``neuma_tpu/core/types.py``: ``MPMConstants``,
-``Statics`` and ``ParticleState`` as plain dataclasses of float32
-tensors, each with a ``.to(device)``.
+Counterpart of ``neuma_tpu/core/types.py``: ``MPMConstants`` (with
+``from_cfg``), ``Statics`` (with ``from_sections``) and
+``ParticleState`` as plain dataclasses of float32 tensors, each with a
+``.to(device)``.
 
 Conventions (as in the JAX package): the grid is a cube of
 ``num_grids`` cells per side in [0, 1]^3 with ``dx = 1 / num_grids``;
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -53,6 +55,21 @@ class MPMConstants:
     def inv_dx(self) -> float:
         return float(self.num_grids)
 
+    @classmethod
+    def from_cfg(cls, cfg, device="cpu") -> "MPMConstants":
+        """From a mapping with ``num_grids``, ``dt``, ``bound``,
+        ``gravity``, ``bc`` and ``eps`` (the reference's
+        ``MPMModelBuilder.parse_cfg``)."""
+        f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=device)
+        return cls(
+            num_grids=int(cfg["num_grids"]),
+            bound=int(cfg["bound"]),
+            bc=str(cfg["bc"]),
+            dt=f32(cfg["dt"]),
+            gravity=f32(cfg["gravity"]),
+            eps=f32(cfg["eps"]),
+        )
+
     def to(self, device) -> "MPMConstants":
         return _to(self, device)
 
@@ -69,6 +86,21 @@ class Statics:
     @property
     def mass(self) -> torch.Tensor:
         return self.vol * self.rho
+
+    @classmethod
+    def from_sections(cls, sections, vols, rhos, clip_bounds, spans, step=0, device="cpu"):
+        """Section-wise constant fill; a section is enabled where
+        ``span[0] <= step < span[1]``."""
+        fill = lambda values, dtype: torch.as_tensor(
+            np.concatenate([np.full(n, v, dtype) for n, v in zip(sections, values)]),
+            device=device,
+        )
+        return cls(
+            vol=fill(vols, np.float32),
+            rho=fill(rhos, np.float32),
+            clip_bound=fill(clip_bounds, np.float32),
+            enabled=fill([1 if s[0] <= step < s[1] else 0 for s in spans], np.int32),
+        )
 
     def to(self, device) -> "Statics":
         return _to(self, device)

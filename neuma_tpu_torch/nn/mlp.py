@@ -1,6 +1,7 @@
 """MLP layer stack with LoRA for the material adaptors.
 
-Counterpart of ``neuma_tpu/nn/mlp.py``. Parameters are the same nested
+Counterpart of ``neuma_tpu/nn/mlp.py`` (with ``lora_mask`` and
+``lora_params``). Parameters are the same nested
 trees (``{"layers": [dict, ...], "final": dict}`` with the leaves
 ``kernel`` or ``kernel_v``/``kernel_g``, ``bias``, ``lora_a``, ``lora_b``
 and ``lora_scale``), so ``interop.py`` moves them across leaf by leaf.
@@ -189,6 +190,13 @@ def lora_mask(params: Params) -> Params:
         "layers": [{k: k in LORA_LEAVES for k in p} for p in params["layers"]],
         "final": {k: k in LORA_LEAVES for k in params["final"]},
     }
+
+
+def lora_params(params: Params) -> Params:
+    """The tree with only the ``lora_a`` / ``lora_b`` leaves (the
+    reference's ``lora_state_dict``)."""
+    pick = lambda p: {k: v for k, v in p.items() if k in LORA_LEAVES}
+    return {"layers": [pick(p) for p in params["layers"]], "final": pick(params["final"])}
 
 
 class _Linear(nn.Module):

@@ -1,6 +1,7 @@
 """Particle <-> Gaussian kernel binding.
 
-Counterpart of ``neuma_tpu/render/binding.py`` (``BindingTable``,
+Counterpart of ``neuma_tpu/render/binding.py`` (``BindingTable`` with
+``counts``, ``save`` and ``load``,
 ``mahalanobis_field``, ``compute_binding_table``, ``apply_binding_xyz``,
 ``apply_binding_F``, ``deform_cov_by_F``): a dense (K, M) index/weight
 table from the chunked Mahalanobis field, applied by gathers and a
@@ -25,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .gaussians import GaussianPack, strip_symmetric, unstrip_symmetric
@@ -50,6 +52,27 @@ class BindingTable:
     @property
     def num_kernels(self) -> int:
         return self.indices.shape[0]
+
+    def counts(self) -> torch.Tensor:
+        """Bound particles per kernel: (K,)."""
+        return torch.sum(self.weights > 0, dim=1)
+
+    def save(self, path) -> None:
+        """The JAX package's ``bindings.npz``: int32 ``indices``, float32
+        ``weights``."""
+        np.savez(
+            path,
+            indices=self.indices.cpu().numpy().astype(np.int32),
+            weights=self.weights.cpu().numpy().astype(np.float32),
+        )
+
+    @classmethod
+    def load(cls, path, device="cpu") -> "BindingTable":
+        d = np.load(path)
+        return cls(
+            indices=torch.as_tensor(d["indices"].astype(np.int64), device=device),
+            weights=torch.as_tensor(d["weights"].astype(np.float32), device=device),
+        )
 
     def to(self, device) -> "BindingTable":
         inv = None if self.inverse is None else self.inverse.to(device)

@@ -1,7 +1,8 @@
 """Camera model with 3DGS conventions.
 
 Counterpart of ``neuma_tpu/render/camera.py`` (``Camera``, ``look_at``,
-``get_world2view``, ``get_projection_matrix``): matrices are stored
+``get_world2view``, ``get_projection_matrix``, ``fov2focal``,
+``focal2fov``): matrices are stored
 TRANSPOSED (row-vector convention, ``p_cam = [p, 1] @ world_view``) and
 built in numpy float64 before the float32 cast, as the JAX package does,
 so both packages hold the same numbers.
@@ -41,6 +42,10 @@ def get_projection_matrix(znear: float, zfar: float, fov_x: float, fov_y: float)
 
 def fov2focal(fov: float, pixels: int) -> float:
     return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal: float, pixels: int) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,19 +1,22 @@
 """3D Gaussian parameter pack (Particle-GS scene representation).
 
 Counterpart of ``neuma_tpu/render/gaussians.py`` (``strip_symmetric``,
-``unstrip_symmetric``, ``build_covariance``, ``GaussianPack`` getters
-and ``create_from_points``). Raw parameters are pre-activation, as in
+``unstrip_symmetric``, ``build_covariance``, ``GaussianPack`` with its
+getters, PLY I/O, ``masked`` and ``concatenate``, and
+``create_from_points``). The PLY layout is 3DGS's, so either package
+reads the other's ``kernels.ply``. Raw parameters are pre-activation, as in
 3DGS: log scales, unnormalized wxyz quaternions, logit opacities, and
 SH features (K, (deg+1)^2, 3) with the DC term first.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..data.ply import load_ply, save_ply
 from ..ops.rotation import quat_to_rotmat
 from ..ops.sh import rgb_to_sh
 
@@ -89,6 +92,71 @@ class GaussianPack:
                 for f in dataclasses.fields(self)
                 if f.name != "sh_degree"
             },
+        )
+
+    # --- PLY I/O (the 3DGS layout) ---------------------------------------
+
+    @classmethod
+    def from_ply(cls, path, sh_degree: int = 3, device="cpu") -> "GaussianPack":
+        """x/y/z, f_dc_*, f_rest_* (stored (C, coeff), held (coeff, C)),
+        opacity, scale_* and rot_* fields."""
+        d = load_ply(path)
+        n = d["x"].shape[0]
+        n_coeff = (sh_degree + 1) ** 2 - 1
+        numbered = lambda prefix: sorted(
+            (k for k in d if k.startswith(prefix)), key=lambda s: int(s.split("_")[-1])
+        )
+        rest_names = numbered("f_rest_")
+        if len(rest_names) != 3 * n_coeff:
+            raise ValueError(f"expected {3 * n_coeff} f_rest_* fields, found {len(rest_names)}")
+        if n_coeff == 0:
+            rest = np.zeros((n, 0, 3), np.float32)
+        else:
+            rest = np.stack([d[k] for k in rest_names], axis=1)
+            rest = rest.reshape(n, 3, n_coeff).transpose(0, 2, 1)
+        f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+        return cls(
+            xyz=f32(np.stack([d["x"], d["y"], d["z"]], axis=1)),
+            features_dc=f32(np.stack([d["f_dc_0"], d["f_dc_1"], d["f_dc_2"]], axis=1)[:, None, :]),
+            features_rest=f32(rest),
+            scaling=f32(np.stack([d[k] for k in numbered("scale_")], axis=1)),
+            rotation=f32(np.stack([d[k] for k in numbered("rot_")], axis=1)),
+            opacity=f32(d["opacity"][:, None]),
+            sh_degree=sh_degree,
+        )
+
+    def to_ply(self, path) -> None:
+        n = self.num_gaussians
+        arr = lambda t: t.detach().cpu().numpy()
+        props: Dict[str, np.ndarray] = {}
+        props["x"], props["y"], props["z"] = arr(self.xyz).T
+        props["nx"] = props["ny"] = props["nz"] = np.zeros(n, np.float32)
+        for prefix, a in (("f_dc", arr(self.features_dc).transpose(0, 2, 1).reshape(n, -1)),
+                          ("f_rest", arr(self.features_rest).transpose(0, 2, 1).reshape(n, -1))):
+            for i in range(a.shape[1]):
+                props[f"{prefix}_{i}"] = a[:, i]
+        props["opacity"] = arr(self.opacity)[:, 0]
+        for prefix, a in (("scale", arr(self.scaling)), ("rot", arr(self.rotation))):
+            for i in range(a.shape[1]):
+                props[f"{prefix}_{i}"] = a[:, i]
+        save_ply(path, props)
+
+    def masked(self, mask) -> "GaussianPack":
+        """The Gaussians where ``mask`` (K,) is true (opacity pruning)."""
+        mask = torch.as_tensor(np.asarray(mask, bool), device=self.xyz.device)
+        return dataclasses.replace(
+            self,
+            **{f.name: getattr(self, f.name)[mask]
+               for f in dataclasses.fields(self) if f.name != "sh_degree"},
+        )
+
+    @classmethod
+    def concatenate(cls, packs) -> "GaussianPack":
+        """Several objects' Gaussians as one pack."""
+        return cls(
+            **{f.name: torch.cat([getattr(p, f.name) for p in packs])
+               for f in dataclasses.fields(cls) if f.name != "sh_degree"},
+            sh_degree=packs[0].sh_degree,
         )
 
 

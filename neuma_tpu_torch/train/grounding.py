@@ -3,7 +3,8 @@
 Counterpart of ``neuma_tpu/train/grounding.py`` (``GroundingScene``,
 ``_remat_policy``, ``make_rollout_loss`` for ``grid_mode="replicated"``,
 ``rollout_decay_weights``, ``decay_rate_for_epoch``, the error classes,
-``optimize_init_velocity`` and ``finetune_constitutive``). Per frame:
+``optimize_init_velocity`` and ``finetune_constitutive`` with its
+train-state file). Per frame:
 ``substeps`` x (elasticity MLP -> MPM step -> plasticity MLP, one
 ``make_packed_substep`` Function), then binding, then one Particle-GS
 render per view (the unrolled per-view loop the JAX package runs for up
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+from pathlib import Path
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -55,6 +57,7 @@ from ..render.rasterize import RasterConfig, rasterize_with_aux
 from ..sim.mpm import _step_sort, make_packed_substep, trainable_params
 from ..sim.p2g_kernel import refresh_step_layouts
 from ..sim.rollout import denormalize_points
+from .checkpoint import load_into, load_train_state, save_train_state
 from .losses import l1_loss, l2_loss
 from .optim import apply_updates, clip_by_global_norm_strict, radam
 from .schedulers import fetch_schedule
@@ -316,7 +319,7 @@ def optimize_init_velocity(
         _raise_on_overflow(aux, f"velocity epoch {epoch}")
         losses.append(float(loss))
         if log_fn:
-            log_fn(epoch, float(loss), float(loss_rgb), init_v.cpu().numpy())
+            log_fn(epoch, float(loss), float(loss_rgb.detach()), init_v.cpu().numpy())
     return VelocityStageResult(init_v=init_v.cpu().numpy(), losses=losses)
 
 
@@ -341,6 +344,8 @@ def finetune_constitutive(
     log_fn: Optional[Callable] = None,
     start_epoch: int = 1,
     train_state_path=None,
+    resume_state: bool = False,
+    write_state: bool = True,
     device=None,
 ) -> ConstitutiveStageResult:
     """Stage 2: masked RAdam on the LoRA leaves of both materials (updated
@@ -351,12 +356,14 @@ def finetune_constitutive(
     zeroed and the optimizer state still advances). ``log_fn`` receives
     ``(epoch, loss, e_norm, p_norm, decay, lr_e, lr_p)``;
     ``checkpoint_fn(epoch, params_e, params_p, loss)`` runs at epoch 1,
-    every 10th and the last."""
-    if train_state_path is not None:
-        raise NotImplementedError(
-            "train_state_path: the full train-state file (train/checkpoint.py) "
-            "is ported in a later slice"
-        )
+    every 10th and the last.
+
+    ``train_state_path`` keeps the full train state (both materials'
+    parameters, the RAdam moments and the step; ``train/checkpoint.py``,
+    the JAX package's file): it is written at every checkpoint epoch when
+    ``write_state``, and, when ``resume_state`` and the file exists,
+    restored before the first epoch, overriding ``start_epoch`` and the
+    materials' leaves."""
     device = resolve_device(device)
     num_epochs = int(cfg["num_epochs"])
     warmup = int(cfg.get("warmup_step", 0))
@@ -393,6 +400,14 @@ def finetune_constitutive(
     e_opt = radam(e_sched, float(cfg.get("elasticity_wd", 0.0)))
     p_opt = radam(p_sched, float(cfg.get("plasticity_wd", 0.0)))
     e_state, p_state = e_opt.init(e_params), p_opt.init(p_params)
+    ts_path = Path(train_state_path) if train_state_path else None
+    if ts_path is not None and resume_state and ts_path.is_file():
+        step, restored, (e_state, p_state) = load_train_state(
+            ts_path, {"e": scene.elasticity.params(), "p": scene.plasticity.params()}, device
+        )
+        load_into(scene.elasticity, restored["e"])
+        load_into(scene.plasticity, restored["p"])
+        start_epoch = step + 1
     e_max_norm = float(cfg.get("elasticity_grad_max_norm", 1.0))
     p_max_norm = float(cfg.get("plasticity_grad_max_norm", 1.0))
 
@@ -438,8 +453,15 @@ def finetune_constitutive(
         if log_fn:
             log_fn(epoch, float(loss), float(e_norm), float(p_norm), decay_rate,
                    float(e_sched(epoch - 1)), float(p_sched(epoch - 1)))
-        if checkpoint_fn and (epoch == 1 or epoch % 10 == 0 or epoch == num_epochs):
+        at_ckpt = epoch == 1 or epoch % 10 == 0 or epoch == num_epochs
+        if checkpoint_fn and at_ckpt:
             checkpoint_fn(epoch, scene.elasticity.params(), scene.plasticity.params(), float(loss))
+        if ts_path is not None and write_state and at_ckpt:
+            save_train_state(
+                ts_path, epoch,
+                {"e": scene.elasticity.params(), "p": scene.plasticity.params()},
+                (e_state, p_state),
+            )
     return ConstitutiveStageResult(
         params_e=scene.elasticity.params(),
         params_p=scene.plasticity.params(),

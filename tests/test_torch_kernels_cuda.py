@@ -15,7 +15,11 @@ per-segment summaries and takes one reciprocal per visit, and sums the
 same inputs and must agree bit for bit, and so do K2 and the dense-grid
 MPM step (plain PyTorch on the card, ``num_grids <= 24``), which is held
 to the same code on the CPU at a scaled 1e-5 forward and 1e-4 backward
-(cuBLAS contracts the tap sums in other orders than the CPU).
+(cuBLAS contracts the tap sums in other orders than the CPU). The
+training CLI runs on a small config on the card and on the CPU, with
+each epoch's loss within rtol 1e-4, the stage-1 velocity and one
+value-and-grad at the end state within a scaled 1e-3
+(``chip_smoke.app_card_vs_cpu``).
 """
 import numpy as np
 import pytest
@@ -360,3 +364,25 @@ def test_dense_step_matches_cpu_and_repeats(cuda):
         assert _scaled_err(a.cpu(), r) <= 1e-4
     for a, b in zip(outs_a + grads_a, outs_b + grads_b):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_finetune_app_small_card_matches_cpu(cuda, tmp_path):
+    """The training CLI on a small copy of finetune-bb.yaml (a 64x64 view,
+    uniform mesh sampling at resolution 10, (16, 16) widths, LoRA r 4,
+    ``num_grids`` 32 so the card runs K1-K5): each epoch's loss of both
+    stages on the card within rtol 1e-4 of the CPU's from the same
+    prepared folder, the card's data preparation equal to the CPU's
+    (particles.ply bitwise, bindings.npz weights equal and indices equal
+    where the weight is above 0), the stage-1 velocity within a scaled
+    1e-3, and one value-and-grad of the stage-2 loss at the card run's
+    end state (``chip_smoke.app_value_and_grad``): loss within rtol 1e-4,
+    each gradient leaf within a scaled 1e-3."""
+    import chip_smoke
+
+    out = chip_smoke.app_card_vs_cpu(tmp_path)
+    assert out["n_losses"] == 4 and out["max_rel_gap"] <= 1e-4
+    assert out["particles_bitwise"] and out["bindings_equal"]
+    assert out["init_v_err"] <= chip_smoke.GRAD_TOL
+    vg = out["value_and_grad"]
+    assert vg["loss_rel_gap"] <= 1e-4 and max(vg["grad_errs"]) <= chip_smoke.GRAD_TOL

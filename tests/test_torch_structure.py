@@ -119,6 +119,23 @@ def test_entry_points_raise_without_cuda():
     loss, aux = make_rollout_loss(scene, device="cpu")(
         torch.zeros(3), torch.ones(1), torch.zeros((1, 1, 3, 32, 32)))
     assert torch.isfinite(loss) and set(aux) == {"overflow", "halo_overflow"}
+    from neuma_tpu_torch.apps.finetune import main as finetune_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune_main(["-c", "any-config.yaml"])
+    from neuma_tpu_torch.apps.common import assemble_scene, run_data_preparation
+    from neuma_tpu_torch.data.prepare import load_prepared, prepare_simulation_data
+    from neuma_tpu_torch.sim.initializers import build_initial_state, build_statics
+
+    # the device is resolved before any argument is read
+    for call in (lambda: run_data_preparation(None, "any-dir"),
+                 lambda: assemble_scene(None, "any-dir", None, None, None, 1, 1, [], "l2",
+                                        torch.zeros(3), False),
+                 lambda: prepare_simulation_data("any-dir", "any.ply"),
+                 lambda: load_prepared("any-dir"),
+                 lambda: build_statics([]), lambda: build_initial_state([])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_trainers_raise_without_cuda():

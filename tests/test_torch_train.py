@@ -2,9 +2,10 @@
 ``neuma_tpu_torch`` on the CPU against ``neuma_tpu`` and ``optax``: RAdam
 (plain, with weight decay, masked), strict global-norm clipping, the
 learning-rate schedules and the rollout-decay weights; the two training
-stages (``optimize_init_velocity``, ``finetune_constitutive``) for two
-epochs each; the ``on_nonfinite`` policy on a poisoned parameter; and the
-overflow and train-state guards.
+stages (``optimize_init_velocity`` and ``finetune_constitutive``) for two
+epochs each, and the port resuming the JAX trainer's train-state file
+after its first epoch; the ``on_nonfinite`` policy on a poisoned
+parameter; and the overflow guard.
 
 The JAX trainer's masked optimizer (``optax.masked``) passes the frozen
 leaves' gradients through as updates, and its clipping norm counts them,
@@ -13,7 +14,9 @@ parity test therefore runs the JAX materials with their non-LoRA leaves
 behind ``stop_gradient``: their gradients are then exactly zero, and the
 JAX trainer computes what the reference does.
 """
+import copy
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -178,41 +181,104 @@ CFG = {
 INIT_V = np.array([0.4, -0.2, 0.1], np.float32)
 
 
-def test_finetune_constitutive_matches_jax(monkeypatch):
-    """Two epochs of stage 2: losses to a relative 1e-5, the clipping norms
-    to 1e-4 and the final LoRA leaves to a scaled 1e-5 (the gradients agree
-    to a scaled ~6e-5, see test_torch_rollout_grad.py, and enter the
-    leaves scaled by the learning rate); every other leaf bitwise
-    unchanged on both sides. The scene's material gradients are small
-    (the stress enters the grid scaled by vol dt 4 inv_dx^2), so weight
-    decay moves the leaves most."""
+@pytest.fixture(scope="module")
+def stage2(tmp_path_factory):
+    """Two JAX epochs of stage 2 that keep the train-state file. The
+    checkpoint hook copies the file at epoch 2, before the trainer writes
+    that epoch's state: the copy holds the state after epoch 1."""
     jscene, tscene, gt = _trainer_scenes()
-    monkeypatch.setenv("NEUMA_SLAB_GRID", "interpret")
+    fresh = copy.deepcopy(tscene)
+    folder = tmp_path_factory.mktemp("train_state")
+    path, epoch1 = folder / "train_state.npz", folder / "epoch1.npz"
+
+    def keep_epoch1(epoch, *_):
+        if epoch == 2:
+            shutil.copy(path, epoch1)
+
     pe, pp = jscene.elasticity_params, jscene.plasticity_params
-    ref = jground.finetune_constitutive(dataclasses.replace(jscene, gt_images=jnp.asarray(gt)),
-                                        INIT_V, CFG, pe, pp)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("NEUMA_SLAB_GRID", "interpret")
+        ref = jground.finetune_constitutive(
+            dataclasses.replace(jscene, gt_images=jnp.asarray(gt)), INIT_V, CFG, pe, pp,
+            checkpoint_fn=keep_epoch1, train_state_path=path)
+    return dict(jscene=jscene, tscene=tscene, fresh=fresh, gt=gt, ref=ref, epoch1=epoch1)
+
+
+def _assert_lora_leaves_trained(t_params, j_params, j_start, tol):
+    t_np, j_np = interop.to_numpy(t_params), jax.tree_util.tree_map(np.asarray, j_params)
+    for a, r, r0 in zip(interop.lora_leaves(t_np), interop.lora_leaves(j_np),
+                        interop.lora_leaves(jax.tree_util.tree_map(np.asarray, j_start))):
+        assert not np.array_equal(r, r0), "the leaf trained"
+        assert scaled_err(a, r) <= tol
+    for layer_t, layer_j, layer_0 in zip(t_np["layers"] + [t_np["final"]],
+                                         j_np["layers"] + [j_np["final"]],
+                                         list(j_start["layers"]) + [j_start["final"]]):
+        for k in ("kernel", "bias", "lora_scale"):
+            if k in layer_0:
+                np.testing.assert_array_equal(layer_j[k], np.asarray(layer_0[k]))
+                np.testing.assert_array_equal(layer_t[k], np.asarray(layer_0[k]))
+
+
+def test_finetune_constitutive_matches_jax(stage2):
+    """Two epochs of stage 2: losses to a relative 1e-5, the clipping
+    norms to 1e-4 and the final LoRA leaves to a scaled 1e-5 (the
+    gradients agree to a scaled ~6e-5, see test_torch_rollout_grad.py, and
+    enter the leaves scaled by the learning rate); every other leaf
+    bitwise unchanged on both sides. The scene's material gradients are
+    small (the stress enters the grid scaled by vol dt 4 inv_dx^2), so
+    weight decay moves the leaves most."""
+    jscene, ref = stage2["jscene"], stage2["ref"]
     ckpts = []
     out = tground.finetune_constitutive(
-        tscene, gt, INIT_V, CFG, device="cpu",
+        stage2["tscene"], stage2["gt"], INIT_V, CFG, device="cpu",
         checkpoint_fn=lambda e, a, b, loss: ckpts.append(e))
     assert ckpts == [1, 2]
     np.testing.assert_allclose(out.losses, ref.losses, rtol=1e-5)
     np.testing.assert_allclose(out.grad_norms_e, ref.grad_norms_e, rtol=1e-4)
     np.testing.assert_allclose(out.grad_norms_p, ref.grad_norms_p, rtol=1e-4)
     assert ref.grad_norms_e[0] > CFG["elasticity_grad_max_norm"], "the clip is active"
-    for t_params, j_params, j_start in ((out.params_e, ref.params_e, pe), (out.params_p, ref.params_p, pp)):
-        t_np, j_np = interop.to_numpy(t_params), jax.tree_util.tree_map(np.asarray, j_params)
-        for a, r, r0 in zip(interop.lora_leaves(t_np), interop.lora_leaves(j_np),
-                            interop.lora_leaves(jax.tree_util.tree_map(np.asarray, j_start))):
-            assert not np.array_equal(r, r0), "the leaf trained"
-            assert scaled_err(a, r) <= 1e-5
-        for layer_t, layer_j, layer_0 in zip(t_np["layers"] + [t_np["final"]],
-                                             j_np["layers"] + [j_np["final"]],
-                                             list(j_start["layers"]) + [j_start["final"]]):
-            for k in ("kernel", "bias", "lora_scale"):
-                if k in layer_0:
-                    np.testing.assert_array_equal(layer_j[k], np.asarray(layer_0[k]))
-                    np.testing.assert_array_equal(layer_t[k], np.asarray(layer_0[k]))
+    for t_params, j_params, j_start in ((out.params_e, ref.params_e, jscene.elasticity_params),
+                                        (out.params_p, ref.params_p, jscene.plasticity_params)):
+        _assert_lora_leaves_trained(t_params, j_params, j_start, 1e-5)
+
+
+def test_finetune_constitutive_resumes_a_jax_train_state(stage2, tmp_path):
+    """The port resumes from the JAX trainer's file after epoch 1: the
+    step, every parameter leaf and the RAdam moments it restores equal
+    what the JAX package's ``load_train_state`` reads (bitwise), and its
+    epoch 2 matches the JAX run's loss to a relative 1e-5 and its final
+    LoRA leaves to the scaled 6.1e-5 of the rollout gradients."""
+    from neuma_tpu.train.checkpoint import load_train_state as jax_load
+    from neuma_tpu_torch.train.checkpoint import load_train_state
+
+    jscene, ref, scene = stage2["jscene"], stage2["ref"], stage2["fresh"]
+    pe, pp = jscene.elasticity_params, jscene.plasticity_params
+    j_opt = lambda p, m: joptim.masked_radam(lambda c: 0.0, m.lora_mask(p), 0.01).init(p)
+    template = {"step": 0, "params": {"e": pe, "p": pp},
+                "opt_state": (j_opt(pe, jscene.elasticity), j_opt(pp, jscene.plasticity))}
+    j_state = jax_load(stage2["epoch1"], template)
+    step, params, states = load_train_state(
+        stage2["epoch1"], {"e": scene.elasticity.params(), "p": scene.plasticity.params()})
+    assert step == int(j_state["step"]) == 1
+    for key in ("e", "p"):
+        for a, r in zip(jax.tree_util.tree_leaves(params[key]),
+                        jax.tree_util.tree_leaves(j_state["params"][key])):
+            np.testing.assert_array_equal(a, np.asarray(r))
+    for state, j_opt_state in zip(states, j_state["opt_state"]):
+        mu, nu = _adam_state(j_opt_state)
+        got = interop.radam_state_to_numpy(state)
+        assert got["count"] == 1
+        for a, r in zip(got["mu"] + got["nu"], interop.lora_leaves(mu) + interop.lora_leaves(nu)):
+            np.testing.assert_array_equal(a, np.asarray(r))
+
+    path = tmp_path / "train_state.npz"
+    shutil.copy(stage2["epoch1"], path)
+    out = tground.finetune_constitutive(scene, stage2["gt"], INIT_V, CFG, device="cpu",
+                                        train_state_path=path, resume_state=True)
+    np.testing.assert_allclose(out.losses, ref.losses[1:], rtol=1e-5)
+    for t_params, j_params, j_start in ((out.params_e, ref.params_e, pe),
+                                        (out.params_p, ref.params_p, pp)):
+        _assert_lora_leaves_trained(t_params, j_params, j_start, 6.1e-5)
 
 
 def test_optimize_init_velocity_matches_jax(monkeypatch):
@@ -294,9 +360,3 @@ def test_pair_budget_overflow_raises(small_scene):
     with pytest.raises(tground.PairBudgetOverflowError, match="velocity epoch 1"):
         tground.optimize_init_velocity(scene, GT, 1, 0.01, tsched.cosine_decay_schedule(0.01, 1),
                                        device="cpu")
-
-
-def test_train_state_file_is_a_later_slice(small_scene):
-    with pytest.raises(NotImplementedError, match="train-state"):
-        tground.finetune_constitutive(small_scene(), GT, INIT_V, _cfg(1), train_state_path="x",
-                                      device="cpu")
