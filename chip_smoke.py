@@ -82,10 +82,34 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     velocity within a scaled 1e-3, and one value-and-grad of the stage-2
     loss at the card run's end state plus a strain rate within the bounds
     of phase 10).
+14. The serving CLIs end to end (``SERVE_CUTS``): (a)
+    ``neuma_tpu_torch.apps.render.main`` for 20 steps on phase 13's
+    scene and outputs (``init.npz``, the last ``*_lora.npz`` by ``-l``;
+    24,034 particles, 32^3, one 800x800 view, SH 3, InvariantFull (64,
+    64), LoRA r 16) with ``-sp``; (b) ``neuma_tpu_torch.apps.inference.main``
+    for 20 steps on ``configs/demo/multiobj-bb-cc.yaml`` at its widths
+    (two objects, ``num_grids`` 42, SH 3, InvariantFull (64, 64), LoRA r
+    16 on object 1, ``max_pairs`` 262,144, one 800x800 view ``e_2`` on
+    white), both objects fabricated and prepared by the port at
+    finetune-bb.yaml's sampling with reference-form ``.pt`` base files
+    from seed 42 and phase 13's last LoRA file on object 1. Gates: the
+    frames (20 per view; 21 with inference's frame 0), the PLYs and a
+    video or GIF per view; the launch counts of each CLI run (counts set
+    to 0 just before it and read just after: K1 and K2 once per step, K4
+    once per rendered view, K3 and K5 never); K1, K2 and K4 against their
+    plain versions at the inference scene's shapes (phase 2's bounds);
+    a second inference run byte-equal in every PNG and PLY; small copies
+    of both CLIs on the card and on the CPU (``SERVE_SMALL``: every PNG
+    pixel within 1 of 255 levels, every step's positions within a scaled
+    1e-5); and ``sim.rollout.rollout`` at the headline shape for 4 frames
+    bitwise equal to a loop of ``make_step_fn`` steps. It prints each
+    CLI's sim ms per step and render ms per view (host clock, each step
+    ended by a synchronize) and whether ``imageio`` is installed.
 
 The scenes follow ``bench.py``'s recipe with random weights from seed 0.
 Output: one JSON line ``{"kernels": [...]}`` (launches counted on the
-headline training path; ``launches_app`` in the CLI run of phase 13),
+headline training path; ``launches_app`` in the CLI run of phase 13;
+``launches_render`` and ``launches_inference`` in the CLI runs of phase 14),
 the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 """
@@ -927,34 +951,44 @@ APP_SMALL = ["sim.num_grids=32", "particle_data.mesh_sample_mode=uniform",
              "constitution.lora.r=4", "constitution.lora.alpha=4"]
 
 
-def fabricate_app_scene(root: Path, n_gaussians: int, size: int, n_steps: int, seed: int = 0):
-    """A BouncyBall-like scene on disk, made with the port's own code: an
-    icosphere mesh (``mesh.obj``) inside the config's ``ori_bounds``,
-    ``n_gaussians`` SH-3 Gaussians in the ball (``kernels.ply``), and one
-    view ``d_2`` of ``n_steps`` RGBA frames of a disk falling across a
-    transparent background, with the NeuMA-Synthetic camera JSON."""
-    from PIL import Image
-
+def fabricate_ball(root: Path, n_gaussians: int, seed: int = 0, device=None):
+    """A BouncyBall-like object on disk, made with the port's own code: an
+    icosphere mesh (``mesh.obj``) of radius 0.2 at (0, 0.45, 0), inside
+    the configs' ``ori_bounds``, and ``n_gaussians`` SH-3 Gaussians in the
+    ball (``kernels.ply``). Returns the ball's centre."""
     from neuma_tpu_torch.data.mesh import TriMesh, make_icosphere
-    from neuma_tpu_torch.render.camera import Camera, fov2focal
     from neuma_tpu_torch.render.gaussians import create_from_points
 
     rng = np.random.default_rng(seed)
     center, radius = np.array([0.0, 0.45, 0.0]), 0.2
+    root.mkdir(parents=True, exist_ok=True)
     ico = make_icosphere(radius=radius, subdivisions=3)
     TriMesh(vertices=ico.vertices + center, faces=ico.faces).export_obj(root / "mesh.obj")
     d = rng.standard_normal((n_gaussians, 3))
     d *= (radius * 0.97 * rng.random((n_gaussians, 1)) ** (1 / 3)) / np.linalg.norm(d, axis=1,
                                                                                       keepdims=True)
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
     with torch.no_grad():
         pack = create_from_points((center + d).astype(np.float32),
                                   rng.random((n_gaussians, 3)).astype(np.float32), sh_degree=3,
-                                  device="cuda" if torch.cuda.is_available() else "cpu")
+                                  device=device)
     pack.to_ply(root / "kernels.ply")
+    return center
 
-    sub = root / "dataset" / "data_dynamic"
+
+def fabricate_views(root: Path, size: int, n_steps: int, target, eye_offset, view: str = "d_2",
+                    subfolder: str = "data_dynamic"):
+    """One view ``view`` of ``n_steps`` RGBA frames of a disk falling
+    across a transparent background, with the NeuMA-Synthetic camera JSON
+    (``<root>/<subfolder>.json``), the camera looking at ``target``."""
+    from PIL import Image
+
+    from neuma_tpu_torch.render.camera import Camera, fov2focal
+
+    sub = root / subfolder
     sub.mkdir(parents=True)
-    cam = Camera.look_at(eye=center + np.array([0.0, 0.15, -1.5]), target=center, fov=0.8,
+    cam = Camera.look_at(eye=target + np.asarray(eye_offset), target=target, fov=0.8,
                          width=size, height=size)
     c2w = np.linalg.inv(cam.world_view.numpy().T.astype(np.float64))
     c2w[:3, 1:3] *= -1  # COLMAP -> OpenGL axes, undone by the reader
@@ -966,11 +1000,18 @@ def fabricate_app_scene(root: Path, n_gaussians: int, size: int, n_steps: int, s
         inside = (yy - cy) ** 2 + (xx - cx) ** 2 < (0.17 * size) ** 2
         rgba = np.zeros((size, size, 4), np.uint8)
         rgba[inside] = (200, 60, 40, 255)
-        name = f"d_2_{step:03d}.png"
+        name = f"{view}_{step:03d}.png"
         Image.fromarray(rgba, "RGBA").save(sub / name)
-        meta.append({"file_path": f"./data_dynamic/{name}", "c2w": c2w.tolist(),
+        meta.append({"file_path": f"./{subfolder}/{name}", "c2w": c2w.tolist(),
                      "intrinsic": [[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]]})
-    (root / "dataset" / "data_dynamic.json").write_text(json.dumps(meta))
+    (root / f"{subfolder}.json").write_text(json.dumps(meta))
+
+
+def fabricate_app_scene(root: Path, n_gaussians: int, size: int, n_steps: int, seed: int = 0):
+    """The training CLI's BouncyBall-like scene: ``fabricate_ball`` in
+    ``root`` and one view ``d_2`` of it under ``root / "dataset"``."""
+    center = fabricate_ball(root, n_gaussians, seed)
+    fabricate_views(root / "dataset", size, n_steps, center, (0.0, 0.15, -1.5))
 
 
 def app_config(root: Path, name: str, extra=()) -> Path:
@@ -1181,6 +1222,359 @@ def app_phase(report, rec) -> bool:
     return ok
 
 
+SERVE_CONFIG = REPO / "configs" / "demo" / "multiobj-bb-cc.yaml"
+SERVE_STEPS = 20
+# The serving phase's cuts: depth and data only (the widths stay).
+SERVE_CUTS = {
+    "eval_steps": f"{SERVE_STEPS} per CLI (their default is 600)",
+    "data": "fabricated scenes: render on phase 13's BouncyBall-like scene and its trained "
+            "init.npz and last LoRA file; inference on two BouncyBall-like objects (an icosphere "
+            "mesh, 10,000 Gaussians each) prepared by the port's data/prepare.py at "
+            "finetune-bb.yaml's sampling (volumetric, resolution 32) inside the config's "
+            "sim_bounds, and one 800x800 view e_2 of 2 eval_dynamic frames on white",
+    "pretrained_ckpt": "reference-form .pt files of random weights from seed 42 "
+                       "(jelly_0300.pt and plasticine_0300.pt are not in the repo)",
+    "load_lora": "object 1 takes phase 13's last *_lora.npz, object 2 none (the config's "
+                 "1000-epoch LoRA files are not in the repo)",
+}
+# The card-vs-CPU copies: small enough for the CPU, still on the slab grid.
+SERVE_SMALL = dict(size=64, n_gaussians=300, mode="uniform", resolution=10, widths=(16, 16),
+                   r=4, num_grids=32)
+KERNELS_SERVED = ("p2g", "g2p", "composite")  # the serving path's kernels (K1, K2, K4)
+
+
+def reference_state_dict(rng, widths):
+    """A reference-form InvariantFullMeta state dict (``layers.{i}.fc.weight``
+    (out, in), ``final_layer.fc.weight``; no bias, no norm), Xavier-uniform."""
+    sd, w_in = {}, 13
+    names = [f"layers.{i}.fc" for i in range(len(widths))] + ["final_layer.fc"]
+    for name, w_out in zip(names, list(widths) + [9]):
+        bound = np.sqrt(6.0 / (w_in + w_out))
+        sd[f"{name}.weight"] = torch.from_numpy(
+            rng.uniform(-bound, bound, (w_out, w_in)).astype(np.float32))
+        w_in = w_out
+    return sd
+
+
+def random_lora_file(path: Path, base_pt: Path, widths, r: int, alpha: float, seed: int):
+    """A LoRA ``.npz`` holding every LoRA leaf (nonzero B) for the base
+    weights of ``base_pt``."""
+    from neuma_tpu_torch.data.torch_ckpt import load_base_model, save_params_npz
+    from neuma_tpu_torch.materials import InvariantFullMetaElasticity, MetaMaterialConfig
+    from neuma_tpu_torch.nn.mlp import lora_params
+
+    gen = torch.Generator().manual_seed(seed)
+    cfg = MetaMaterialConfig(layer_widths=tuple(widths))
+    out = {}
+    for key, tree in zip(("elasticity", "plasticity"), load_base_model(base_pt, len(widths))):
+        m = InvariantFullMetaElasticity(cfg, tree)
+        m.init_lora(gen, r=r, alpha=alpha)
+        with torch.no_grad():
+            for layer in list(m.mlp.layers) + [m.mlp.final]:
+                layer.lora_b.copy_(0.2 * torch.randn(layer.lora_b.shape, generator=gen))
+        out[key] = lora_params(m.params())
+    save_params_npz(path, out)
+
+
+def serve_config(root: Path, small: bool, lora: Path = None, device="cuda") -> Path:
+    """multiobj-bb-cc.yaml with both objects fabricated under ``root``
+    (prepared on the card), reference-form base files, object 1's LoRA
+    (``lora``, or a random one for the small copy) and the fabricated
+    ``e_2`` view; the small copy also takes ``SERVE_SMALL``'s cuts."""
+    from neuma_tpu_torch.data.prepare import prepare_simulation_data
+    from neuma_tpu_torch.utils.config import load_config
+
+    sc = SERVE_SMALL
+    cfg = load_config(SERVE_CONFIG, [f"root={root / 'out'}",
+                                     f"video_data.data.path={root / 'dataset'}"]
+                      + ([f"sim.num_grids={sc['num_grids']}"] if small else []))
+    wrng = np.random.default_rng(42)
+    for i, obj in enumerate(cfg.objects):
+        obj_root = root / f"obj{i}"
+        fabricate_ball(obj_root, sc["n_gaussians"] if small else 10000, seed=10 + i, device=device)
+        prepare_simulation_data(
+            save_dir=obj_root / "assets", kernels_path=obj_root / "kernels.ply",
+            mesh_path=obj_root / "mesh.obj",
+            mesh_sample_mode=sc["mode"] if small else "volumetric",
+            mesh_sample_resolution=sc["resolution"] if small else 32,
+            particles_downsample_factor=1,  # as run_data_preparation takes a mesh
+            sh_degree=int(obj.gaussian.sh_degree), opacity_thres=float(obj.gaussian.opacity_thres),
+            confidence=float(obj.gaussian.confidence),
+            max_particles=int(obj.gaussian.max_particles), device=device)
+        con = obj.constitution
+        if small:
+            con.elasticity.layer_widths = list(sc["widths"])
+            con.plasticity.layer_widths = list(sc["widths"])
+            con.lora.r = sc["r"]
+        widths = list(con.elasticity.layer_widths)
+        torch.save({"elasticity": reference_state_dict(wrng, widths),
+                    "plasticity": reference_state_dict(wrng, widths)}, obj_root / "base.pt")
+        obj.data_root = str(obj_root / "assets")
+        obj.pretrained_ckpt = str(obj_root / "base.pt")
+        obj.constitution.load_lora = None
+    if small:
+        lora = root / "obj0" / "lora.npz"
+        random_lora_file(lora, root / "obj0" / "base.pt", sc["widths"], sc["r"],
+                         float(cfg.objects[0].constitution.lora.alpha), seed=7)
+    cfg.objects[0].constitution.load_lora = str(lora)
+    # the view looks at both objects in the sim box (x, z = 0.5; y 0.23-0.92)
+    fabricate_views(root / "dataset", sc["size"] if small else 800, 2,
+                    np.array([0.5, 0.55, 0.5]), (0.0, 0.1, -1.5), view="e_2",
+                    subfolder="eval_dynamic")
+    path = root / "multiobj.yaml"
+    cfg.save(path)
+    return path
+
+
+def _ms(values):
+    """Median of the per-step host times after the first (warm-up) step."""
+    return statistics.median(values[1:]) if len(values) > 1 else values[0]
+
+
+def _png_gap(dir_a: Path, dir_b: Path, pattern: str):
+    """(names equal, number of frames, largest |a - b| of any pixel in
+    uint8 units)."""
+    from PIL import Image
+
+    names = sorted(p.name for p in dir_a.glob(pattern))
+    same = bool(names) and names == sorted(p.name for p in dir_b.glob(pattern))
+    worst = 0
+    for n in names if same else []:
+        a = np.asarray(Image.open(dir_a / n), np.int16)
+        b = np.asarray(Image.open(dir_b / n), np.int16)
+        worst = max(worst, int(np.abs(a - b).max()))
+    return same, len(names), worst
+
+
+def _ply_gap(dir_a: Path, dir_b: Path):
+    """(names equal, number of files, largest scaled error of any step's
+    positions)."""
+    from neuma_tpu_torch.data.ply import load_ply_points
+
+    names = sorted(p.name for p in dir_a.glob("*.ply"))
+    same = bool(names) and names == sorted(p.name for p in dir_b.glob("*.ply"))
+    worst = 0.0
+    for n in names if same else []:
+        a, b = (torch.as_tensor(load_ply_points(d / n)) for d in (dir_a, dir_b))
+        worst = max(worst, scaled_err(a, b))
+    return same, len(names), worst
+
+
+def _bytes_equal(dir_a: Path, dir_b: Path, pattern: str) -> bool:
+    names = sorted(p.name for p in dir_a.glob(pattern))
+    return bool(names) and names == sorted(p.name for p in dir_b.glob(pattern)) and all(
+        (dir_a / n).read_bytes() == (dir_b / n).read_bytes() for n in names)
+
+
+def _launch_gate(launches, steps, views, frames_extra=0):
+    """K1 and K2 once per step, K4 once per rendered view, K3 and K5 never."""
+    want = {"p2g": steps, "g2p": steps, "composite": views * (steps + frames_extra),
+            "g2p_derivs": 0, "composite_bwd": 0}
+    return all(launches.get(k, 0) == v for k, v in want.items()), want
+
+
+def serve_kernel_checks(scene, tag):
+    """K1, K2 and K4 against their plain versions at a serving scene's own
+    shapes (``kernel_inputs`` on a stand-in with the scene's constants,
+    statics, positions, Gaussians and first camera), at phase 2's bounds."""
+    from types import SimpleNamespace
+
+    from neuma_tpu_torch.render import raster_kernel as rk
+    from neuma_tpu_torch.render.gaussians import GaussianPack
+    from neuma_tpu_torch.sim import p2g_kernel as pk
+
+    stand_in = SimpleNamespace(
+        constants=scene.constants, statics=scene.statics, init_x=scene.state0.x,
+        gaussians=GaussianPack.concatenate(scene.packs), cameras=list(scene.cameras.values()),
+        scaling_modifier=1.0, force_mask_data=False, raster_cfg=scene.raster_cfg)
+    inp = kernel_inputs(stand_in, torch.Generator().manual_seed(0))
+    e1 = scaled_err(pk.run_p2g_fwd(inp["payload"], inp["c2b"], inp["NB"]),
+                    pk.run_p2g_fwd_plain(inp["payload"], inp["c2b"], inp["NB"]))
+    args = (inp["payload_g"], inp["slabs"], inp["c2b_g"], inp["inv_dx"])
+    e2 = scaled_err(pk.run_apic_gather(*args), pk.run_apic_gather_plain(*args))
+    args = (inp["pf"], inp["tile_start"], inp["counts"], inp["tiles_x"])
+    (Tk, Ck, lk), (Tp, Cp, lp) = rk.composite_fwd(*args), rk.composite_fwd_plain(*args)
+    e4 = max(float((Tk - Tp).abs().max()), float((Ck - Cp).abs().max()))
+    mism = int((lk != lp).sum())
+    ok = e1 <= K12_TOL and e2 <= K12_TOL and e4 <= K4_TOL and mism == 0
+    log(f"[serve:{tag}] kernels at the CLI's shapes ({scene.state0.x.shape[0]} particles, "
+        f"{scene.constants.num_grids}^3, {int(inp['counts'].sum())} live pairs of "
+        f"{inp['max_pairs']}): p2g {e1:.3e}, g2p {e2:.3e} (bound {K12_TOL:.0e}), "
+        f"composite {e4:.3e} (bound {K4_TOL:.0e}), last mismatches {mism}")
+    return ok, dict(p2g=e1, g2p=e2, composite=e4, last_mismatch=mism,
+                    n_particles=int(scene.state0.x.shape[0]), pairs=int(inp["counts"].sum()))
+
+
+def rollout_vs_step_loop(scene, frames: int = 4) -> bool:
+    """``sim.rollout.rollout`` (one block sort carried and refreshed) for
+    ``frames`` frames against a Python loop of ``make_step_fn`` steps
+    (layouts built per step), on the card: bitwise equal states."""
+    from neuma_tpu_torch.core.types import ParticleState
+    from neuma_tpu_torch.sim.rollout import make_step_fn, rollout
+
+    c = scene.constants
+    step = make_step_fn(c, scene.statics, scene.elasticity, scene.plasticity)
+    n = scene.init_x.shape[0]
+    v0 = torch.tensor([0.3, 0.0, 0.0], device=scene.init_x.device).expand(n, 3).contiguous()
+    s0 = ParticleState.initial(scene.init_x, v0)
+    with torch.no_grad():
+        final, traj = rollout(step, s0, frames, substeps=scene.substeps, constants=c)
+        loop, same = s0, True
+        for f in range(frames):
+            for _ in range(scene.substeps):
+                loop = step(loop)
+            same &= all(torch.equal(getattr(traj, k)[f], getattr(loop, k)) for k in "xvCF")
+    same &= all(torch.equal(getattr(final, k), getattr(loop, k)) for k in "xvCF")
+    return bool(same)
+
+
+def serve_render_card_vs_cpu(app_root: Path) -> dict:
+    """The render CLI on phase 13's small copy (its card run's init.npz and
+    last LoRA file) on the card and on the CPU: the PNG gap and every
+    step's positions."""
+    from neuma_tpu_torch.apps import render
+
+    cfg = app_root / "small" / "small.yaml"
+    tune = app_root / "small" / "logs" / "small" / "finetune"
+    lora = sorted(tune.glob("*_lora.npz"))[-1]
+    results = app_root / "small" / "logs" / "small" / "results"
+    for name, device in (("card", None), ("cpu", "cpu")):
+        render.main(["-c", str(cfg), "-s", str(SERVE_STEPS), "-vn", name, "-dv", "d_2",
+                     "-sp", f"particles_{name}", "-l", str(lora)], device=device)
+    png = _png_gap(results / "card", results / "cpu", "*.png")
+    ply = _ply_gap(results / "particles_card", results / "particles_cpu")
+    return dict(png_names_equal=png[0], n_png=png[1], png_gap=png[2], ply_names_equal=ply[0],
+                n_ply=ply[1], ply_err=ply[2])
+
+
+def serve_inference_card_vs_cpu(root: Path) -> dict:
+    """The inference CLI on a small copy of multiobj-bb-cc.yaml
+    (``SERVE_SMALL``, prepared on the card) on the card and on the CPU."""
+    from neuma_tpu_torch.apps import inference
+
+    cfg = serve_config(root, small=True)
+    args = ["-c", str(cfg), "-s", str(SERVE_STEPS), "-dv", "e_2", "-sp", "particles"]
+    inference.main(args + ["-vn", "card"])
+    inference.main(args + ["-vn", "cpu"], device="cpu")
+    out = root / "out"
+    png = _png_gap(out / "card" / "images", out / "cpu" / "images", "*.png")
+    ply = _ply_gap(out / "card" / "particles", out / "cpu" / "particles")
+    from neuma_tpu_torch.data.ply import load_ply_points
+
+    return dict(png_names_equal=png[0], n_png=png[1], png_gap=png[2], ply_names_equal=ply[0],
+                n_ply=ply[1], ply_err=ply[2],
+                n_particles=len(load_ply_points(out / "card" / "particles" / "001.ply")))
+
+
+def serve_phase(report, scenes) -> bool:
+    """Phase 14: the serving CLIs end to end on the card (see the module
+    docstring)."""
+    import importlib.util
+    import shutil
+
+    from neuma_tpu_torch import kernels
+    from neuma_tpu_torch.apps import inference, render
+    from neuma_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    app_root = REPO / "build" / "chip_smoke_app"
+    root = REPO / "build" / "chip_smoke_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for k, v in SERVE_CUTS.items():
+        log(f"[serve] cut: {k}: {v}")
+    imageio = importlib.util.find_spec("imageio") is not None
+    log(f"[serve] {nvidia_smi()}; imageio installed: {imageio}")
+    n = SERVE_STEPS
+
+    # (a) the render CLI on phase 13's outputs
+    lora = sorted((app_root / "logs" / "bb" / "finetune").glob("*_lora.npz"))[-1]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res_r = render.main(["-c", str(app_root / "bb.yaml"), "-s", str(n), "-vn", "serve",
+                         "-dv", "d_2", "-sp", "particles", "-l", str(lora)])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches_r = dict(kernels.launches)
+    gate_r, want_r = _launch_gate(launches_r, n, 1)
+    out_r = app_root / "logs" / "bb" / "results"
+    files_r = (len(list((out_r / "serve").glob("d_2_*.png"))) == n
+               and len(list((out_r / "particles").glob("particles_*.ply"))) == n
+               and len(res_r.videos) == 1 and res_r.videos[0] is not None
+               and res_r.videos[0].is_file())
+    log(f"[serve:render] finetune-bb.yaml, {n} steps, one 800x800 view d_2, LoRA {lora.name}: "
+        f"sim {_ms(res_r.sim_ms):.2f} ms/step, render d_2 {_ms(res_r.render_ms['d_2']):.2f} "
+        f"ms/view (host clock, median after step 1); CLI {render_s:.2f} s; launches "
+        f"{launches_r} (want {want_r}); frames, PLYs and {res_r.videos[0].name if res_r.videos[0] else None} "
+        f"written {files_r}; overflow {res_r.overflow}")
+
+    # (b) the inference CLI on multiobj-bb-cc.yaml at its widths
+    t0 = time.perf_counter()
+    cfg_path = serve_config(root / "full", small=False, lora=lora)
+    prep_s = time.perf_counter() - t0
+    args = ["-c", str(cfg_path), "-s", str(n), "-dv", "e_2", "-sp", "particles"]
+    runs, cli_s, launches_i = [], [], None
+    for name in ("a", "b"):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        runs.append(inference.main(args + ["-vn", name]))
+        torch.cuda.synchronize()
+        cli_s.append(time.perf_counter() - t0)
+        launches_i = launches_i or dict(kernels.launches)
+    res_i = runs[0]
+    gate_i, want_i = _launch_gate(launches_i, n, 1, frames_extra=1)
+    out_i = root / "full" / "out"
+    files_i = (len(list((out_i / "a" / "images").glob("e_2_*.png"))) == n + 1
+               and len(list((out_i / "a" / "particles").glob("*.ply"))) == n
+               and res_i.videos[0] is not None and res_i.videos[0].is_file())
+    bitwise_i = (_bytes_equal(out_i / "a" / "images", out_i / "b" / "images", "*.png")
+                 and _bytes_equal(out_i / "a" / "particles", out_i / "b" / "particles", "*.ply"))
+    scene_i = inference.load_scene(load_config(cfg_path), n, ["e_2"], "cuda")
+    checks_ok, checks = serve_kernel_checks(scene_i, "inference")
+    log(f"[serve:inference] multiobj-bb-cc.yaml, 2 objects, {checks['n_particles']} particles, "
+        f"{scene_i.constants.num_grids}^3, one 800x800 view e_2, {n} steps: sim "
+        f"{_ms(res_i.sim_ms):.2f} ms/step, render e_2 {_ms(res_i.render_ms['e_2']):.2f} ms/view "
+        f"(host clock, median after step 1); prep {prep_s:.2f} s, CLI {cli_s[0]:.2f} / "
+        f"{cli_s[1]:.2f} s; launches {launches_i} (want {want_i}); frames, PLYs and "
+        f"{res_i.videos[0].name if res_i.videos[0] else None} written {files_i}; second run "
+        f"byte-equal PNGs and PLYs {bitwise_i}; overflow {res_i.overflow}")
+    del scene_i
+
+    # (c) small copies on the card and the CPU
+    t0 = time.perf_counter()
+    small_r = serve_render_card_vs_cpu(app_root)
+    small_i = serve_inference_card_vs_cpu(root / "small")
+    small_s = time.perf_counter() - t0
+    for tag, sm in (("render", small_r), ("inference", small_i)):
+        log(f"[serve:small] {tag}: {sm['n_png']} PNGs, largest pixel gap card vs CPU "
+            f"{sm['png_gap']} (bound 1), {sm['n_ply']} PLYs, positions scaled error "
+            f"{sm['ply_err']:.2e} (bound 1e-5)")
+    log(f"[serve:small] inference copy: 64x64, uniform res 10, (16, 16), r 4, num_grids 32, "
+        f"{small_i['n_particles']} particles; both copies {small_s:.1f} s")
+
+    # (d) rollout vs the step loop at the headline shape
+    t0 = time.perf_counter()
+    roll_ok = rollout_vs_step_loop(scenes["headline"], 4)
+    log(f"[serve] sim.rollout.rollout, headline shape, 4 frames: bitwise equal to a loop of "
+        f"make_step_fn steps {roll_ok} ({time.perf_counter() - t0:.2f} s)")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[serve] phase {phase_s:.1f} s")
+    report["serve"] = dict(
+        cuts=SERVE_CUTS, imageio=imageio, seconds=phase_s,
+        render=dict(sim_ms=res_r.sim_ms, render_ms=res_r.render_ms, cli_s=render_s,
+                    launches=launches_r, video=str(res_r.videos[0])),
+        inference=dict(sim_ms=res_i.sim_ms, render_ms=res_i.render_ms, prep_s=prep_s,
+                       cli_s=cli_s, launches=launches_i,
+                       video=str(res_i.videos[0]), checks=checks, bitwise=bitwise_i),
+        small_render=small_r, small_inference=small_i, rollout_bitwise=roll_ok)
+    ok = (gate_r and files_r and gate_i and files_i and bitwise_i and checks_ok and roll_ok
+          and all(sm["png_names_equal"] and sm["ply_names_equal"] and sm["png_gap"] <= 1
+                  and sm["ply_err"] <= 1e-5 for sm in (small_r, small_i)))
+    if not ok:
+        log("[serve] FAILED")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1291,6 +1685,8 @@ def main() -> int:
     ok_dense = ok and dense_phase(report, init_v)
     # 13. the training CLI
     ok_app = ok_dense and app_phase(report, rec)
+    # 14. the serving CLIs
+    ok_serve = ok_app and serve_phase(report, scenes)
     report.update(kernels=rec, launches_train_headline=launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "build"
@@ -1299,7 +1695,7 @@ def main() -> int:
     if not ok:
         log("[train] FAILED")
         return 1
-    if not (ok_dense and ok_app):
+    if not (ok_dense and ok_app and ok_serve):
         return 1
 
     sources = {
@@ -1317,6 +1713,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches.get(name, 0), "launches_forward": launches_fwd.get(name, 0),
             "launches_app": report["app"]["launches"].get(name, 0),
+            "launches_render": report["serve"]["render"]["launches"].get(name, 0),
+            "launches_inference": report["serve"]["inference"]["launches"].get(name, 0),
             "check": "pass", "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -4,7 +4,9 @@ scene assembly from configs and the LoRA checkpoint ring.
 Counterpart of ``neuma_tpu/apps/common.py`` (``TRAIN_EPS``,
 ``resolve_exp_dirs``, ``background_color``, ``run_data_preparation``,
 ``build_materials``, ``init_data_from_cfg``, ``assemble_scene``,
-``save_lora_checkpoint``, ``load_latest_lora``, ``overlay_lora``). Two
+``save_lora_checkpoint``, ``load_latest_lora``, ``overlay_lora``), and
+``load_lora`` with the serving apps' ``ServeResult``, ``OverflowWarning``,
+``to_uint8`` and ``sync``. Two
 differences follow from the port's trainers: the materials are modules
 that carry their weights (so ``build_materials`` returns the two
 modules and ``overlay_lora`` writes into one in place), and the ground
@@ -15,6 +17,7 @@ other numbers than the JAX package's PRNG gives from that seed.
 """
 from __future__ import annotations
 
+import dataclasses
 import shutil
 from pathlib import Path
 from typing import List, Tuple
@@ -26,13 +29,19 @@ from ..core.device import resolve_device
 from ..core.types import MPMConstants
 from ..data.prepare import PREPARED_FILES, load_prepared, prepare_simulation_data
 from ..data.readers import VideoDataset
-from ..data.torch_ckpt import load_base_model, load_params_npz, save_params_npz
+from ..data.torch_ckpt import (
+    load_base_model,
+    load_params_npz,
+    load_torch_file,
+    merge_lora_state_dict,
+    save_params_npz,
+)
 from ..materials.meta import (
     InvariantFullMetaElasticity,
     InvariantFullMetaPlasticity,
     MetaMaterialConfig,
 )
-from ..nn.mlp import LORA_LEAVES, lora_params
+from ..nn.mlp import LORA_LEAVES, MLP, lora_params
 from ..render.rasterize import RasterConfig
 from ..sim.initializers import MPMInitData, build_statics
 from ..train.grounding import GroundingScene
@@ -66,24 +75,28 @@ def background_color(cfg: Config) -> Tuple[torch.Tensor, bool]:
 
 def run_data_preparation(cfg: Config, data_root: Path, device=None) -> None:
     """Prepare from ``particles_path`` or ``mesh_path``; with neither, the
-    folder must already hold the prepared files. The binding runs on
-    ``cuda`` unless ``device="cpu"``."""
+    folder must already hold the prepared files (and the config needs no
+    ``gaussian.kernels_path``). The binding runs on ``cuda`` unless
+    ``device="cpu"``."""
     device = resolve_device(device)
     pd = cfg.particle_data
-    common = dict(
-        save_dir=data_root,
-        kernels_path=Path(cfg.gaussian.kernels_path),
-        sh_degree=cfg.gaussian.sh_degree,
-        opacity_thres=cfg.gaussian.opacity_thres,
-        confidence=cfg.gaussian.confidence,
-        max_particles=cfg.gaussian.max_particles,
-        device=device,
-    )
+
+    def common():
+        return dict(
+            save_dir=data_root,
+            kernels_path=Path(cfg.gaussian.kernels_path),
+            sh_degree=cfg.gaussian.sh_degree,
+            opacity_thres=cfg.gaussian.opacity_thres,
+            confidence=cfg.gaussian.confidence,
+            max_particles=cfg.gaussian.max_particles,
+            device=device,
+        )
+
     if pd.get("particles_path") is not None:
         prepare_simulation_data(
             particles_path=Path(pd.particles_path),
             particles_downsample_factor=pd.get("downsample_factor", 3),
-            **common,
+            **common(),
         )
     elif pd.get("mesh_path") is not None:
         prepare_simulation_data(
@@ -91,7 +104,7 @@ def run_data_preparation(cfg: Config, data_root: Path, device=None) -> None:
             mesh_sample_mode=pd.mesh_sample_mode,
             mesh_sample_resolution=pd.mesh_sample_resolution,
             particles_downsample_factor=1,
-            **common,
+            **common(),
         )
     else:
         missing = [f for f in PREPARED_FILES if not (data_root / f).is_file()]
@@ -241,3 +254,70 @@ def overlay_lora(material, lora_tree) -> None:
             for k in LORA_LEAVES:
                 if k in saved:
                     layer[k].copy_(torch.as_tensor(saved[k]))
+
+
+def load_lora(elasticity, plasticity, path, r: int, alpha: float, seed: int) -> None:
+    """Give both materials LoRA factors drawn from ``seed`` (the apps'
+    ``init_lora``), then the saved ones, in place: the leaves of an
+    ``.npz`` of either package (``overlay_lora``), or a reference
+    ``{epoch}_lora.pt`` merged by ``merge_lora_state_dict``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for material in (elasticity, plasticity):
+        device = next(material.parameters()).device
+        material.init_lora(gen, r=r, alpha=alpha)
+        material.to(device)
+    if str(path).endswith(".npz"):
+        lora = load_params_npz(path)
+        overlay_lora(elasticity, lora["elasticity"])
+        overlay_lora(plasticity, lora["plasticity"])
+        return
+    ckpt = load_torch_file(path)
+    for key, material in (("elasticity", elasticity), ("plasticity", plasticity)):
+        device = next(material.parameters()).device
+        base = {"layers": [{k: v.detach().cpu() for k, v in layer.items()}
+                           for layer in material.params()["layers"]],
+                "final": {k: v.detach().cpu() for k, v in material.params()["final"].items()}}
+        merged = merge_lora_state_dict(base, ckpt[key], len(base["layers"]), r, alpha)
+        material.mlp = MLP(material.mlp_cfg, merged).to(device)
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """What a serving run wrote and how long its steps took (host clock,
+    each step ended by a synchronize on the card): ``sim_ms`` per
+    simulated step, ``render_ms[view]`` per rendered frame."""
+
+    out_dir: Path
+    frames: list
+    particles: list
+    videos: list
+    sim_ms: list
+    render_ms: dict
+    overflow: bool
+
+
+def sync(device) -> None:
+    """Wait for the card (a no-op on the CPU), so a host clock times the work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def to_uint8(img: torch.Tensor) -> np.ndarray:
+    """(3, H, W) in [0, 1] -> (H, W, 3) uint8, as the JAX apps write PNGs."""
+    return np.clip(img.cpu().numpy().transpose(1, 2, 0) * 255, 0, 255).astype(np.uint8)
+
+
+class OverflowWarning:
+    """Warns once when a render dropped pairs; reads the device flag on
+    the host only until it has warned."""
+
+    def __init__(self):
+        self.warned = False
+
+    def __call__(self, aux, where: str) -> None:
+        if not self.warned and bool(aux["overflow"]):
+            self.warned = True
+            print(
+                f"WARNING: raster pair budget exceeded at {where}; pairs were dropped and "
+                "the image is wrong - raise raster.max_pairs/max_per_tile in the config."
+            )

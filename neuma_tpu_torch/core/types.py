@@ -1,7 +1,8 @@
 """Simulation state containers.
 
 Counterpart of ``neuma_tpu/core/types.py``: ``MPMConstants`` (with
-``from_cfg``), ``Statics`` (with ``from_sections``) and
+``from_cfg``), ``Statics`` (with ``from_sections`` and
+``with_enabled_at_step``) and
 ``ParticleState`` as plain dataclasses of float32 tensors, each with a
 ``.to(device)``.
 
@@ -101,6 +102,15 @@ class Statics:
             clip_bound=fill(clip_bounds, np.float32),
             enabled=fill([1 if s[0] <= step < s[1] else 0 for s in spans], np.int32),
         )
+
+    def with_enabled_at_step(self, sections, spans, step) -> "Statics":
+        """The same statics with ``enabled`` set per section for ``step``
+        (``span[0] <= step < span[1]``): at ``step == span[1]`` a section
+        is disabled, as in the JAX package."""
+        en = np.concatenate(
+            [np.full(n, 1 if s[0] <= step < s[1] else 0, np.int32) for n, s in zip(sections, spans)]
+        )
+        return dataclasses.replace(self, enabled=torch.as_tensor(en, device=self.enabled.device))
 
     def to(self, device) -> "Statics":
         return _to(self, device)

@@ -10,7 +10,14 @@ is imported here. Converted:
   ``lora_b`` and ``lora_scale``;
 * ``MPMConstants``, ``Statics`` and ``ParticleState``;
 * ``GaussianPack``'s arrays, ``BindingTable``'s ``indices`` and
-  ``weights``, and ``Camera``'s matrices, fov and size.
+  ``weights``, and ``Camera``'s matrices, fov and size;
+* materials (``material_from_numpy``): every preset (``log_E`` and its
+  ``sigma_y`` / ``friction_angle``), every meta family (its MLP tree,
+  or the Spline pair's knot values ``yk_f`` / ``yk_g`` / ``yk_h``), and
+  ``ComposeMaterial`` from a list of trees (``compose_from_numpy``). The
+  class is named as in the JAX package (both packages use the same
+  names) and built from its config mapping (a meta family also takes the
+  JAX package's ``MetaMaterialConfig`` dataclass).
 
 ``to_numpy`` maps any of the port's trees back to numpy (bit-exact).
 
@@ -28,7 +35,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import materials
 from .core.types import MPMConstants, ParticleState, Statics
+from .materials.meta import _MetaBase
 from .nn.mlp import LORA_LEAVES
 from .render.binding import BindingTable
 from .render.camera import Camera
@@ -134,3 +143,22 @@ def radam_state_to_numpy(state: RAdamState) -> dict:
 def radam_state_from_numpy(count, mu, nu, device="cpu") -> RAdamState:
     conv = lambda xs: [None if x is None else _t(x, device) for x in xs]
     return RAdamState(int(count), conv(mu), conv(nu))
+
+
+def material_from_numpy(name: str, cfg, params, device="cpu"):
+    """The port's material ``name`` with the numpy tree ``params`` of the
+    JAX package's same-named material, built from ``cfg``."""
+    cls = getattr(materials, name)
+    if dataclasses.is_dataclass(cfg):
+        cfg = dataclasses.asdict(cfg)
+    if issubclass(cls, _MetaBase):
+        return cls(materials.MetaMaterialConfig.from_cfg(cfg), mlp_params_from_numpy(params, device))
+    return cls(cfg, {k: _t(v, device) for k, v in params.items()}).to(device)
+
+
+def compose_from_numpy(specs, params_list, sections, device="cpu"):
+    """``ComposeMaterial`` over ``specs`` [(name, cfg), ...] with the JAX
+    package's list of trees ``params_list``."""
+    return materials.ComposeMaterial(
+        [material_from_numpy(n, c, p, device) for (n, c), p in zip(specs, params_list)], sections
+    )

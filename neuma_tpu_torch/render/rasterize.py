@@ -3,9 +3,9 @@
 Counterpart of ``neuma_tpu/render/rasterize.py``: ``RasterConfig``,
 ``_project`` (EWA projection with the 1.3x tan-fov clamp and the +0.3
 low-pass), ``_sh_colors``, ``_tile_ranges``, ``_build_aligned_pairs``,
-the pair-feature gather ``_gather_pair_feats`` and the kernel branch of
-``rasterize_with_aux``. Pairs are binned by one stable sort by tile id
-over depth-ordered pairs (the JAX package states that counting and
+the pair-feature gather ``_gather_pair_feats``, the kernel branch of
+``rasterize_with_aux`` and ``rasterize`` (the same without the aux).
+Pairs are binned by one stable sort by tile id over depth-ordered pairs (the JAX package states that counting and
 sorting give identical tile lists), each tile range is padded to a
 multiple of ``CHUNK`` = 32, and the composite runs in K4 forward and K5
 backward (``raster_kernel.composite_pairs``).
@@ -243,6 +243,25 @@ class _GatherPairFeats(torch.autograd.Function):
 
 def _gather_pair_feats(feats, pair_gid, glue):
     return _GatherPairFeats.apply(feats, pair_gid, glue)
+
+
+def rasterize(
+    means3d: torch.Tensor,
+    cov3d: torch.Tensor,
+    opacity: torch.Tensor,
+    camera: Camera,
+    bg_color: torch.Tensor,
+    shs: Optional[torch.Tensor] = None,
+    colors_precomp: Optional[torch.Tensor] = None,
+    sh_degree: int = 3,
+    cfg: RasterConfig = RasterConfig(),
+) -> torch.Tensor:
+    """``rasterize_with_aux`` without the aux."""
+    img, _ = rasterize_with_aux(
+        means3d, cov3d, opacity, camera, bg_color, shs=shs, colors_precomp=colors_precomp,
+        sh_degree=sh_degree, cfg=cfg,
+    )
+    return img
 
 
 def rasterize_with_aux(

@@ -1,13 +1,19 @@
-"""Dense-grid APIC scatter and its closed-form tap-space adjoint.
+"""APIC scatter with its closed-form tap-space adjoint: the dense grid,
+and the public ``apic_scatter`` / ``apic_scatter_f`` on every grid.
 
-Counterpart of the dense parts of ``neuma_tpu/sim/blocked.py``: ``_spline``,
+Counterpart of ``neuma_tpu/sim/blocked.py``: ``_spline``,
 ``_tap_geometry`` (the full cube; halo ``GridGeom`` views are scale-out
-work), ``_dense_forward``, ``_apic_bwd_jnp`` and ``_apic_bwd_dual_impl``.
-On grids of at most 24 cells the JAX package's dispatchers
-(``_forward_dispatch``, ``_apic_bwd_impl``) take ``_dense_forward`` and
-``_apic_bwd_jnp`` on every backend, and so does the port. Above 24 cells
-the port runs the slab chain of ``sim/p2g_kernel.py`` (K1-K3) on every
-device, so the blocked jnp scatter ``_blocked_forward`` has no counterpart.
+work), ``_dense_forward``, ``_apic_bwd_jnp``, ``_apic_bwd_dual_impl``
+and the custom-VJP primitives ``apic_scatter`` (mass and momentum) and
+``apic_scatter_f`` (momentum only). On grids of at most 24 cells the JAX
+package's dispatchers (``_forward_dispatch``, ``_apic_bwd_impl``) take
+``_dense_forward`` and ``_apic_bwd_jnp`` on every backend, and so does
+the port. Above 24 cells the port runs the slab chain of
+``sim/p2g_kernel.py`` on every device: the primitives' forward is K1
+(the blocked scatter, its halo-complete slabs cut back to the dense
+grid) and their backward K3 (the tap gather with spline derivatives, on
+the dense cotangent unfolded into slabs), so the blocked jnp scatter
+``_blocked_forward`` has no counterpart.
 
 The dense path launches no TPU kernel, and plain PyTorch is its
 implementation on the CPU and on the card. The scatter (``.at[idx].add``
@@ -147,3 +153,96 @@ def _apic_bwd_dual_impl(constants, x, gm, b, A, du, df, b2, A2, gv):
     dx1, dgm, db, dA = _apic_bwd_jnp(constants, x, gm, b, A, du, df)
     dx2, _, _, _ = _apic_bwd_jnp(constants, x, None, b2, A2, None, gv)
     return dx1, dgm, db, dA, dx2
+
+
+def _slab_grid(constants: MPMConstants) -> bool:
+    return constants.num_grids > 24
+
+
+def _scatter_forward(constants, x, gm, b, A, sort):
+    """(grid_m or None, grid_f) of the APIC scatter: K1 on slab grids,
+    the ordered dense scatter otherwise."""
+    if not _slab_grid(constants):
+        return _dense_forward(constants, x, gm, b, A)
+    from .p2g_kernel import p2g_slab_scatter, slabs_to_dense
+
+    grid = slabs_to_dense(p2g_slab_scatter(constants, x, gm, b, A, sort), constants.num_grids)
+    return (grid[:, 3] if gm is not None else None), grid[:, :3]
+
+
+def _scatter_backward(constants, x, gm, b, A, du, df, sort):
+    """(dx, dgm or None, db, dA) for the grid cotangents ``du`` (mass, or
+    None) and ``df`` (momentum): K3 against the cotangent's slabs on slab
+    grids, the tap-space gathers of ``_apic_bwd_jnp`` otherwise."""
+    if not _slab_grid(constants):
+        return _apic_bwd_jnp(constants, x, gm, b, A, du, df)
+    from .p2g_kernel import dense_to_slabs, gather_from_slabs
+
+    ch = df if du is None else torch.cat([df, du[:, None]], dim=1)
+    slabs = dense_to_slabs(ch, constants.num_grids)
+    dx, dgm, db, dA = gather_from_slabs(constants, x, slabs, gm, b, A, derivs=True, sort=sort)
+    return dx, (dgm if du is not None else None), db, dA
+
+
+def _layouts(constants, x, sort):
+    """The step layouts the slab chain shares between forward and
+    backward (None on the dense grid)."""
+    if sort is None and _slab_grid(constants):
+        from .p2g_kernel import build_step_layouts
+
+        return build_step_layouts(constants, x)
+    return sort
+
+
+class _ApicScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, constants, sort, x, gm, b, A):
+        ctx.save_for_backward(x, gm, b, A)
+        ctx.constants, ctx.sort = constants, sort
+        return _scatter_forward(constants, x, gm, b, A, sort)
+
+    @staticmethod
+    def backward(ctx, du, df):
+        x, gm, b, A = ctx.saved_tensors
+        dx, dgm, db, dA = _scatter_backward(ctx.constants, x, gm, b, A, du, df, ctx.sort)
+        return None, None, dx, dgm, db, dA
+
+
+class _ApicScatterF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, constants, sort, x, b, A):
+        ctx.save_for_backward(x, b, A)
+        ctx.constants, ctx.sort = constants, sort
+        return _scatter_forward(constants, x, None, b, A, sort)[1]
+
+    @staticmethod
+    def backward(ctx, df):
+        x, b, A = ctx.saved_tensors
+        dx, _, db, dA = _scatter_backward(ctx.constants, x, None, b, A, None, df, ctx.sort)
+        return None, None, dx, db, dA
+
+
+def apic_scatter(
+    constants: MPMConstants,
+    x: torch.Tensor,
+    gm: torch.Tensor,
+    b: torch.Tensor,
+    A: torch.Tensor,
+    sort=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mass and momentum APIC scatter,
+
+        grid_m[c] += W_c(x) gm,   grid_f[c] += W_c(x) (b + A dpos_c),
+
+    returning (grid_m (G^3,), grid_f (G^3, 3)). The backward is the
+    closed-form 27-tap gather (cell indices are piecewise constant in x).
+    ``sort`` may carry the step's ``StepLayouts`` (or a ``BlockSort``)."""
+    return _ApicScatter.apply(constants, _layouts(constants, x, sort), x, gm, b, A)
+
+
+def apic_scatter_f(
+    constants: MPMConstants, x: torch.Tensor, b: torch.Tensor, A: torch.Tensor, sort=None
+) -> torch.Tensor:
+    """Momentum-only APIC scatter, grid_f[c] += W_c(x) (b + A dpos_c):
+    the G2P grid cotangent's transpose."""
+    return _ApicScatterF.apply(constants, _layouts(constants, x, sort), x, b, A)

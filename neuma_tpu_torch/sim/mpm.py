@@ -2,9 +2,11 @@
 
 Counterpart of ``neuma_tpu/sim/mpm.py``: ``_p2g_terms``, ``grid_op``
 and ``grid_op_slabs`` (``noslip`` and ``freeslip``), ``g2p_core``,
-``_g2p_tail``, ``_step_sort``, the step on either branch (``_step_fwd``,
-the direct adjoint ``_step_bwd``), ``mpm_step``, ``mpm_step_diff``,
-``make_packed_substep`` and ``scrub_cotangents``.
+``_g2p_tail``, the public ``p2g`` (``method="auto"``), ``g2p`` and
+``advect_extra`` on the dense grid's tensors, ``_step_sort``, the step
+on either branch (``_step_fwd``, the direct adjoint ``_step_bwd``),
+``mpm_step``, ``mpm_step_diff``, ``make_packed_substep`` and
+``scrub_cotangents``.
 
 Grids of more than 24 cells take the slab branch on any device: the grid
 lives as halo-complete per-block slabs from the P2G kernel (K1) through
@@ -36,12 +38,22 @@ import torch
 from torch import nn
 
 from ..core.types import MPMConstants, ParticleState, Statics
-from .blocked import _apic_bwd_dual_impl, _apic_bwd_jnp, _dense_forward, _tap_geometry
+from .blocked import (
+    _apic_bwd_dual_impl,
+    _dense_forward,
+    _layouts,
+    _scatter_backward,
+    _slab_grid,
+    _scatter_forward,
+    _tap_geometry,
+    apic_scatter,
+)
 from .p2g_kernel import (
     BLOCK,
     S,
     _cdiv,
     build_step_layouts,
+    dense_to_slabs,
     gather_from_slabs,
     p2g_slab_scatter,
 )
@@ -132,16 +144,29 @@ def _g2p_dense(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor):
     return new_v, new_C
 
 
+def _g2p_slab(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor, sort):
+    """The same contractions by K2 on the dense grid velocity's slabs."""
+    zeros3 = torch.zeros_like(x)
+    zeros33 = torch.zeros(x.shape + (3,), dtype=x.dtype, device=x.device)
+    slabs = dense_to_slabs(grid_v, constants.num_grids)
+    _, _, new_v, dA = gather_from_slabs(constants, x, slabs, None, zeros3, zeros33,
+                                        derivs=False, sort=sort)
+    return new_v, 4.0 * constants.inv_dx * constants.inv_dx * dA
+
+
 class _G2PCore(torch.autograd.Function):
-    """The dense G2P tap contractions; the backward routes the grid
-    cotangent through the dense scatter with b = d new_v, A = kappa d new_C
-    (the exact transpose) and the position cotangent through the same
-    tap-space gather as the step backward."""
+    """The G2P tap contractions (K2 on slab grids, plain gathers on the
+    dense grid); the backward routes the grid cotangent through the
+    scatter with b = d new_v, A = kappa d new_C (the exact transpose: K1
+    or the dense scatter) and the position cotangent through the same
+    tap-space gather as the step backward (K3 or ``_apic_bwd_jnp``)."""
 
     @staticmethod
-    def forward(ctx, constants, x, grid_v):
+    def forward(ctx, constants, sort, x, grid_v):
         ctx.save_for_backward(x, grid_v)
-        ctx.constants = constants
+        ctx.constants, ctx.sort = constants, sort
+        if _slab_grid(constants):
+            return _g2p_slab(constants, x, grid_v, sort)
         return _g2p_dense(constants, x, grid_v)
 
     @staticmethod
@@ -149,15 +174,17 @@ class _G2PCore(torch.autograd.Function):
         x, grid_v = ctx.saved_tensors
         constants = ctx.constants
         A = 4.0 * constants.inv_dx * constants.inv_dx * dC
-        _, d_grid = _dense_forward(constants, x, None, dv, A)
-        d_x, _, _, _ = _apic_bwd_jnp(constants, x, None, dv, A, None, grid_v)
-        return None, d_x, d_grid
+        _, d_grid = _scatter_forward(constants, x, None, dv, A, ctx.sort)
+        d_x, _, _, _ = _scatter_backward(constants, x, None, dv, A, None, grid_v, ctx.sort)
+        return None, None, d_x, d_grid
 
 
-def g2p_core(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor):
-    """The two tap contractions of G2P on the dense grid, (new_v, new_C),
-    with the JAX package's custom backward."""
-    return _G2PCore.apply(constants, x, grid_v)
+def g2p_core(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor, sort=None):
+    """The two tap contractions of G2P, (new_v, new_C), against the dense
+    grid velocity (G^3, 3), with the JAX package's custom backward.
+    ``sort`` may carry the step's layouts (slab grids only)."""
+    sort = _layouts(constants, x, sort)
+    return _G2PCore.apply(constants, sort, x, grid_v)
 
 
 def _g2p_tail(
@@ -183,6 +210,58 @@ def _g2p_tail(
     )
 
 
+def g2p(
+    constants: MPMConstants,
+    statics: Statics,
+    state: ParticleState,
+    grid_v: torch.Tensor,
+    sort=None,
+) -> ParticleState:
+    """Grid-to-particle transfer from the dense grid velocity (G^3, 3):
+    the tap contractions (``g2p_core``), then the F update, advection,
+    clamp and enabled freeze. Differentiable end to end."""
+    new_v, new_C = g2p_core(constants, state.x, grid_v, sort)
+    return _g2p_tail(constants, statics, state, new_v, new_C)
+
+
+def p2g(
+    constants: MPMConstants,
+    statics: Statics,
+    state: ParticleState,
+    stress: torch.Tensor,
+    method: str = "auto",
+    sort=None,
+):
+    """Particle-to-grid scatter, (grid_m (G^3,), grid_mv (G^3, 3)):
+    ``apic_scatter`` of the step's channels (K1 on slab grids, the
+    ordered dense scatter otherwise), differentiable through its
+    tap-space adjoint. ``method`` 'auto' and 'blocked' are this path."""
+    if method in ("auto", "blocked"):
+        mass, b, affine = _p2g_terms(constants, statics, state, stress)
+        return apic_scatter(constants, state.x, mass, b, affine, sort)
+    if method in ("matmul", "scatter"):
+        raise NotImplementedError(
+            f"p2g(method={method!r}) is not ported yet (ROADMAP.md, queue 1, item 5: "
+            "the alternative backends); use method='auto'"
+        )
+    raise ValueError(f"unknown p2g method: {method!r}")
+
+
+def advect_extra(
+    constants: MPMConstants,
+    statics: Statics,
+    state: ParticleState,
+    stress: torch.Tensor,
+    statics_extra: Statics,
+    state_extra: ParticleState,
+) -> ParticleState:
+    """Advect a passive second particle set on the grid that the primary
+    set scatters."""
+    grid_m, grid_mv = p2g(constants, statics, state, stress)
+    grid_v = grid_op(constants, grid_m, grid_mv)
+    return g2p(constants, statics_extra, state_extra, grid_v)
+
+
 def _step_fwd_slab(constants, statics, state, stress, sort):
     """P2G (K1) -> grid op -> G2P (K2) -> tail. Returns
     (out_state, slabs_mmv, new_v, new_C)."""
@@ -200,10 +279,6 @@ def _step_fwd_slab(constants, statics, state, stress, sort):
     new_C = kappa * dA
     out = _g2p_tail(constants, statics, state, new_v, new_C)
     return out, slabs_mmv, new_v, new_C
-
-
-def _slab_grid(constants: MPMConstants) -> bool:
-    return constants.num_grids > 24
 
 
 def _step_sort(constants: MPMConstants, x: torch.Tensor):

@@ -22,7 +22,8 @@ and packed into the same 48-column payload. Two kernels run on it:
 
 Each wrapper takes its plain PyTorch version (``*_plain``) only for
 tensors on the CPU; on CUDA tensors it launches the kernel or raises.
-The layout glue (sorts, carving, payload, halo add) is plain torch.
+The layout glue (sorts, carving, payload, halo add, the slab <-> dense
+grid views of the public scatter and gather) is plain torch.
 Every ``argsort`` passes ``stable=True``, as ``jnp.argsort`` is stable.
 """
 from __future__ import annotations
@@ -471,6 +472,35 @@ def halo_add_slabs(pb: torch.Tensor, nbs) -> torch.Tensor:
     tail = nxt[:, :, :, :, 0:2] + t[:, :, :, :, B:S]
     t = torch.cat([head, mid, tail], dim=4)
     return t.reshape(NB, ch, S, S * S)
+
+
+def slabs_to_dense(slabs: torch.Tensor, num_grids: int) -> torch.Tensor:
+    """Halo-complete slabs (NB, CH, S, S*S) or (NB, CH, S, S, S) -> the
+    dense (G^3, CH) grid: block b's core lines 0..13 are dense lines
+    14 b + l (a halo-complete slab repeats its neighbours' values in its
+    last two lines, so the cores alone tile the grid)."""
+    g = num_grids
+    nb = _cdiv(g, BLOCK)
+    ch = slabs.shape[1]
+    t = slabs.reshape(nb, nb, nb, ch, S, S, S)[..., :BLOCK, :BLOCK, :BLOCK]
+    t = t.permute(0, 4, 1, 5, 2, 6, 3).reshape(nb * BLOCK, nb * BLOCK, nb * BLOCK, ch)
+    return t[:g, :g, :g].reshape(g ** 3, ch)
+
+
+def dense_to_slabs(grid: torch.Tensor, num_grids: int) -> torch.Tensor:
+    """The dense (G^3, CH <= 4) grid -> slabs (NB, 4, S, S, S): slab line l
+    of block b reads dense line 14 b + l, zero past the grid and in the
+    channels CH..3 (the JAX package's ``unfold_blocks``)."""
+    g = num_grids
+    nb = _cdiv(g, BLOCK)
+    ch = grid.shape[1]
+    gp = nb * BLOCK + 2
+    arr = grid.reshape(g, g, g, ch)
+    arr = torch.nn.functional.pad(arr, (0, 4 - ch, 0, gp - g, 0, gp - g, 0, gp - g))
+    lines = (torch.arange(nb, device=grid.device)[:, None] * BLOCK
+             + torch.arange(S, device=grid.device)[None, :])  # (nb, S)
+    t = arr[lines][:, :, lines][:, :, :, :, lines]  # (nb, S, nb, S, nb, S, 4)
+    return t.permute(0, 2, 4, 6, 1, 3, 5).reshape(nb ** 3, 4, S, S, S).contiguous()
 
 
 def p2g_slab_scatter(

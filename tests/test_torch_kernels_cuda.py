@@ -19,7 +19,12 @@ to the same code on the CPU at a scaled 1e-5 forward and 1e-4 backward
 training CLI runs on a small config on the card and on the CPU, with
 each epoch's loss within rtol 1e-4, the stage-1 velocity and one
 value-and-grad at the end state within a scaled 1e-3
-(``chip_smoke.app_card_vs_cpu``).
+(``chip_smoke.app_card_vs_cpu``). The serving surface: ``apic_scatter``
+and ``g2p_core`` on a slab grid (K1, K2, K3 with their VJPs) within a
+scaled 1e-5 of the CPU and bitwise repeatable; ``sim.rollout.rollout``
+bitwise equal to a loop of steps; the inference CLI on a small copy of
+multiobj-bb-cc.yaml within 1 of 255 levels per pixel and a scaled 1e-5
+per step's positions of the CPU.
 """
 import numpy as np
 import pytest
@@ -386,3 +391,93 @@ def test_finetune_app_small_card_matches_cpu(cuda, tmp_path):
     assert out["init_v_err"] <= chip_smoke.GRAD_TOL
     vg = out["value_and_grad"]
     assert vg["loss_rel_gap"] <= 1e-4 and max(vg["grad_errs"]) <= chip_smoke.GRAD_TOL
+
+
+def _api_scene(device, g=32, n=3000, seed=3):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    c = MPMConstants(num_grids=g, dt=f(8e-4), gravity=f([0, -9.8, 0]), eps=f(6e-7))
+    ins = dict(x=f(0.25 + 0.5 * rng.random((n, 3))), gm=f(1e-5 * rng.random(n)),
+               b=f(1e-5 * rng.standard_normal((n, 3))), A=f(1e-4 * rng.standard_normal((n, 3, 3))),
+               du=f(rng.standard_normal(g ** 3)), df=f(rng.standard_normal((g ** 3, 3))),
+               grid_v=f(rng.standard_normal((g ** 3, 3))))
+    return c, ins
+
+
+def _apic_and_g2p(device):
+    """apic_scatter (K1 forward, K3 backward) and g2p's tap contractions
+    (K2 forward; K1 and K3 backward) on a slab grid, with their VJPs."""
+    from neuma_tpu_torch.sim.blocked import apic_scatter
+    from neuma_tpu_torch.sim.mpm import g2p_core
+
+    c, ins = _api_scene(device)
+    leaves = [ins[k].clone().requires_grad_(True) for k in ("x", "gm", "b", "A")]
+    m, f = apic_scatter(c, *leaves)
+    grads = torch.autograd.grad([m, f], leaves, [ins["du"], ins["df"]])
+    x, gv = ins["x"].clone().requires_grad_(True), ins["grid_v"].clone().requires_grad_(True)
+    v, C = g2p_core(c, x, gv)
+    cv, cC = torch.ones_like(v), 0.01 * torch.ones_like(C)
+    g2 = torch.autograd.grad([v, C], [x, gv], [cv, cC])
+    return [t.detach() for t in (m, f, *grads, v, C, *g2)]
+
+
+@pytest.mark.cuda
+def test_public_scatter_and_gather_match_cpu_and_repeat(cuda):
+    """``apic_scatter`` and ``g2p_core`` on a 32^3 slab grid: values and
+    VJPs on the card (K1, K2, K3) within a scaled 1e-5 of the same code on
+    the CPU (the plain versions), and two card runs bitwise equal."""
+    from neuma_tpu_torch import kernels
+
+    cpu = _apic_and_g2p("cpu")
+    kernels.reset_launches()
+    a = _apic_and_g2p(cuda)
+    assert all(kernels.launches[k] > 0 for k in ("p2g", "g2p", "g2p_derivs"))
+    b = _apic_and_g2p(cuda)
+    for x, y, z in zip(a, b, cpu):
+        assert _scaled_err(x.cpu(), z) <= 1e-5
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_rollout_equals_a_loop_of_steps_on_the_card(cuda):
+    """``sim.rollout.rollout`` (the block sort carried and refreshed) for 3
+    frames x 2 substeps equals a loop of ``make_step_fn`` steps bit for
+    bit on a 32^3 slab grid."""
+    from neuma_tpu_torch.materials import (
+        InvariantFullMetaElasticity, InvariantFullMetaPlasticity, MetaMaterialConfig)
+    from neuma_tpu_torch.sim.rollout import make_step_fn, rollout
+
+    c, ins = _api_scene(cuda, n=2000)
+    n = ins["x"].shape[0]
+    statics = Statics(vol=torch.full((n,), 2e-8, device=cuda), rho=torch.full((n,), 1e3, device=cuda),
+                      clip_bound=torch.full((n,), 0.1, device=cuda),
+                      enabled=torch.ones(n, dtype=torch.int32, device=cuda))
+    gen = torch.Generator().manual_seed(0)
+    cfg = MetaMaterialConfig(layer_widths=(16, 16))
+    e = InvariantFullMetaElasticity.init(cfg, gen, cuda)
+    p = InvariantFullMetaPlasticity.init(cfg, gen, cuda)
+    step = make_step_fn(c, statics, e, p)
+    s0 = ParticleState.initial(ins["x"], 0.3 * ins["grid_v"][:n])
+    with torch.no_grad():
+        final, traj = rollout(step, s0, 3, substeps=2, constants=c)
+        loop = s0
+        for _ in range(6):
+            loop = step(loop)
+    for k in "xvCF":
+        assert torch.equal(getattr(final, k), getattr(loop, k))
+        assert torch.equal(getattr(traj, k)[-1], getattr(loop, k))
+
+
+@pytest.mark.cuda
+def test_inference_app_small_card_matches_cpu(cuda, tmp_path):
+    """The inference CLI on a small copy of multiobj-bb-cc.yaml (two
+    fabricated objects, a 64x64 view, uniform sampling at resolution 10,
+    (16, 16) widths, LoRA r 4 on object 1, ``num_grids`` 32 so the card
+    runs K1, K2 and K4) on the card and on the CPU for 20 steps: the same
+    files, every PNG pixel within 1 of 255 levels and every step's
+    positions within a scaled 1e-5 (``chip_smoke.serve_inference_card_vs_cpu``)."""
+    import chip_smoke
+
+    out = chip_smoke.serve_inference_card_vs_cpu(tmp_path)
+    assert out["png_names_equal"] and out["n_png"] == 21 and out["png_gap"] <= 1
+    assert out["ply_names_equal"] and out["n_ply"] == 20 and out["ply_err"] <= 1e-5
