@@ -105,16 +105,43 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     bitwise equal to a loop of ``make_step_fn`` steps. It prints each
     CLI's sim ms per step and render ms per view (host clock, each step
     ended by a synchronize) and whether ``imageio`` is installed.
+15. The registration and evaluation CLIs (``REGIST_CUTS``): (a)
+    ``neuma_tpu_torch.apps.regist.main`` from
+    ``configs/realworld/regist-bun.yaml`` at its widths (SH 0, three
+    RealCapture views r_0-r_2 at 1920x1080, ``max_pairs`` 524,288, the
+    config's INIT, learning rates and cosine alpha, volumetric sampling
+    at 36) on a capture it fabricates: 30,000 Gaussians and an icosphere
+    mesh in a raw frame, first frames rendered by the port at a Sim(3)
+    about 1 degree, 5 mm and 1 % of scale from INIT; 200 iterations.
+    Gates: each view's pairs fit the budget at INIT and at the true pose,
+    the three files, finite logged losses with the last below the
+    first, K4 = K5 = 3 per iteration and K1-K3 never launched, K4 and K5
+    against their plain versions on view r_0's pair features at INIT
+    (phase 2's bounds), and a second CLI run that launches nothing and
+    leaves the files byte-equal. (b) A small copy (``tests/test_register.py``'s
+    scene, SH 1, ``lambda_dssim`` 0.2) for 10 iterations on the card
+    twice and on the CPU: losses rtol 1e-4, params a scaled 1e-4, the
+    card runs bitwise. (c) ``neuma_tpu_torch.apps.evaluate.main`` on
+    phase 14's render-CLI frames against phase 13's ground truth (800x800,
+    the default crop, ``--video``): ``metrics.txt`` with finite
+    ``psnr``, ``ssim`` and ``lpips_vgg_rand``, the video, and each
+    frame's metrics on the card within rtol 1e-5 (PSNR, SSIM) and 1e-4
+    (LPIPS) of the CPU's. It prints ms per iteration (host clock between
+    log points, median), each stage's seconds, the peak memory, and ms
+    per frame of each metric (CUDA events), and profiles 5 iterations
+    (the device's idle share, time by kernel).
 
 The scenes follow ``bench.py``'s recipe with random weights from seed 0.
 Output: one JSON line ``{"kernels": [...]}`` (launches counted on the
 headline training path; ``launches_app`` in the CLI run of phase 13;
-``launches_render`` and ``launches_inference`` in the CLI runs of phase 14),
+``launches_render`` and ``launches_inference`` in the CLI runs of phase 14;
+``launches_regist`` in the registration CLI run of phase 15),
 the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -407,7 +434,6 @@ def g2p_work(inp, rows_per_cta, threads_per_row):
 @torch.no_grad()
 def check_and_time(tag, inp, rec):
     from neuma_tpu_torch import kernels
-    from neuma_tpu_torch.render import raster_kernel as rk
     from neuma_tpu_torch.sim import p2g_kernel as pk
 
     lib = kernels.library()
@@ -484,6 +510,22 @@ def check_and_time(tag, inp, rec):
         work=dict(g2p_work(inp, lib.neuma_g2p_derivs_rows_per_cta(),
                            lib.neuma_g2p_derivs_threads_per_row()), slab_cells_read=cells3),
     )
+    ok &= check_composite(tag, inp, rec)
+    log(f"[check:{tag}] first view at rest needs {inp['pairs_needed']} (gaussian, tile) "
+        f"pairs, max_pairs {inp['max_pairs']}: overflow {inp['raster_overflow']}")
+    log_checks(tag, rec, KERNELS)
+    return ok
+
+
+def check_composite(tag, inp, rec) -> bool:
+    """K4 and K5 against their plain versions on ``inp``'s pair features
+    (``pf``, ``tile_start``, ``counts``, ``tiles_x``) and random ``dT``,
+    ``dC``, at phase 2's bounds; times and bounds into ``rec``."""
+    from neuma_tpu_torch import kernels
+    from neuma_tpu_torch.render import raster_kernel as rk
+
+    lib = kernels.library()
+    ok = True
     # K4
     args = (inp["pf"], inp["tile_start"], inp["counts"], inp["tiles_x"])
     Tk, Ck, lk = rk.composite_fwd(*args)
@@ -529,9 +571,11 @@ def check_and_time(tag, inp, rec):
         device_rows=device_rows(lambda: rk.composite_bwd(*a5)),
         work=composite_walk_stats(inp, lk),
     )
-    log(f"[check:{tag}] first view at rest needs {inp['pairs_needed']} (gaussian, tile) "
-        f"pairs, max_pairs {inp['max_pairs']}: overflow {inp['raster_overflow']}")
-    for name in KERNELS:
+    return ok
+
+
+def log_checks(tag, rec, names):
+    for name in names:
         r = rec[name][tag]
         log(
             f"[check:{tag}] {name}: max err {r['max_abs_err']:.3e} (bound {r['tol']:.0e})"
@@ -543,13 +587,12 @@ def check_and_time(tag, inp, rec):
             + (f", output-only launch {r['output_only_ms']:.5f} ms device"
                if "output_only_ms" in r else "")
         )
-    for name in KERNELS:
+    for name in names:
         r = rec[name][tag]
         if "work" in r:
             log(f"[work:{tag}] {name}: {json.dumps(r['work'])}")
         for key, ms in r["device_rows"].items():
             log(f"[work:{tag}] {name} device {ms:.4f} ms  {key}")
-    return ok
 
 
 def timed(fn, args, reps=3):
@@ -1575,6 +1618,367 @@ def serve_phase(report, scenes) -> bool:
     return ok
 
 
+REGIST_CONFIG = REPO / "configs" / "realworld" / "regist-bun.yaml"
+REGIST_ITERS = 200
+REGIST_LOG_EVERY = 20
+# The registration phase's cuts of regist-bun.yaml: depth and data only
+# (SH 0, three 1920x1080 views, max_pairs, the INIT pose, the learning
+# rates, the schedule's alpha and volumetric sampling at 36 stay).
+REGIST_CUTS = {
+    "iterations": f"{REGIST_ITERS} (the config runs 20,000), register.scheduler.max_steps "
+                  f"{REGIST_ITERS} to match; the loss read every {REGIST_LOG_EVERY} "
+                  "(register.log_every)",
+    "capture": "2 steps per view (r_0-r_2, init frame 0 is the one registered)",
+    "data": "fabricated: 30,000 SH-0 Gaussians in a ball and an icosphere mesh around it (raw "
+            "frame, radius 2), first frames rendered by the port at a Sim(3) 1 deg, 5 mm and "
+            "1 % of scale from the config's INIT, full masks, black background",
+}
+REGIST_TRUE_OFFSET = dict(r_deg=(0.6, -0.6, 0.5), t=(0.003, -0.003, 0.0025), s=1.01)
+REGIST_VIEWS = ("r_0", "r_1", "r_2")
+EVAL_TOL = dict(psnr=1e-5, ssim=1e-5, lpips=1e-4)  # per-frame rtol, card vs CPU
+
+
+def fabricate_raw_gaussians(root: Path, n: int, center, radius: float, seed: int):
+    """``n`` SH-0 Gaussians filling a ball (the raw 3DGS frame) with random
+    colours, anisotropic extents near 1 % of the radius, random rotations
+    and opacity 0.6 (``kernels.ply``), and the ball's icosphere
+    (``mesh.obj``)."""
+    from neuma_tpu_torch.data.mesh import TriMesh, make_icosphere
+    from neuma_tpu_torch.ops.sh import rgb_to_sh
+    from neuma_tpu_torch.render.gaussians import GaussianPack
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    ico = make_icosphere(radius=radius, subdivisions=3)
+    TriMesh(vertices=ico.vertices + center, faces=ico.faces).export_obj(root / "mesh.obj")
+    d = rng.standard_normal((n, 3))
+    d *= (radius * rng.random((n, 1)) ** (1 / 3)) / np.linalg.norm(d, axis=1, keepdims=True)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    pack = GaussianPack(
+        xyz=f32(center + d),
+        features_dc=rgb_to_sh(f32(rng.random((n, 3))))[:, None, :],
+        features_rest=torch.zeros((n, 0, 3)),
+        scaling=f32(np.log(radius * 0.015 * rng.uniform(0.7, 1.3, (n, 3)))),
+        rotation=f32(rng.standard_normal((n, 4))),
+        opacity=torch.full((n, 1), float(np.log(0.6 / 0.4))),
+        sh_degree=0,
+    )
+    pack.to_ply(root / "kernels.ply")
+    return pack
+
+
+def write_capture_metadata(root: Path, target, views, width: int, height: int,
+                           fov: float = 0.9, dist: float = 1.4):
+    """A RealCapture folder's cameras: COLMAP ``sparse/0/cameras.bin``
+    (PINHOLE at the 4752x2672 capture scale, focals chosen so the
+    reader's rescale gives ``fov`` both ways) and ``cameras_calib.json``
+    (Rodrigues extrinsics of cameras ``dist`` from ``target``)."""
+    import struct
+
+    from neuma_tpu_torch.render.camera import fov2focal
+
+    (root / "sparse" / "0").mkdir(parents=True)
+    (root / "dynamics").mkdir()
+    (root / "dynamic_masks").mkdir()
+    with open(root / "sparse" / "0" / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, 4752, 2672))  # camera 1, PINHOLE
+        f.write(struct.pack("<4d", fov2focal(fov, height) * 4752 / width,
+                            fov2focal(fov, width) * 2672 / height, 4752 / 2, 2672 / 2))
+    calib = {}
+    for vi, view in enumerate(views):
+        eye = target + np.array([dist * np.cos(0.8 * vi), 0.4, dist * np.sin(0.8 * vi)])
+        fwd = (target - eye) / np.linalg.norm(target - eye)
+        right = np.cross(fwd, [0.0, 1.0, 0.0])
+        right /= np.linalg.norm(right)
+        R_wc = np.stack([right, np.cross(fwd, right), fwd])  # x right, y down, z forward
+        theta = np.arccos(np.clip((np.trace(R_wc) - 1) / 2, -1.0, 1.0))
+        axis = np.array([R_wc[2, 1] - R_wc[1, 2], R_wc[0, 2] - R_wc[2, 0],
+                         R_wc[1, 0] - R_wc[0, 1]]) / (2 * np.sin(theta))
+        calib[view] = {"rvecs": (axis * theta).tolist(), "tvecs": (-R_wc @ eye).tolist()}
+    (root / "cameras_calib.json").write_text(json.dumps(calib))
+
+
+def write_capture_frames(root: Path, cfg, moved, raster_cfg, n_steps: int):
+    """Each view's frames (``dynamics/{view}_{step}.jpg``, the render of
+    ``moved`` on black through the reader's own cameras) and full masks.
+    Returns the cameras."""
+    from PIL import Image
+
+    from neuma_tpu_torch.apps.common import to_uint8
+    from neuma_tpu_torch.data.readers import VideoDataset
+    from neuma_tpu_torch.render.rasterize import rasterize
+
+    w, h = 1920, 1080
+    for view in REGIST_VIEWS:  # placeholders, so the reader builds the cameras
+        Image.fromarray(np.zeros((h, w, 3), np.uint8)).save(root / "dynamics" / f"{view}_0.jpg")
+        Image.fromarray(np.full((h, w), 255, np.uint8)).save(
+            root / "dynamic_masks" / f"{view}_0.png")
+    dev = moved.xyz.device
+    ds = VideoDataset(cfg.video_data.to_dict())
+    cams = [ds.get(v, 0).camera.to(dev) for v in ds.views]
+    with torch.no_grad():
+        cov = moved.get_covariance()
+        for view, cam in zip(ds.views, cams):
+            img = to_uint8(rasterize(moved.xyz, cov, moved.get_opacity, cam,
+                                     torch.zeros(3, device=dev), shs=moved.get_features,
+                                     sh_degree=0, cfg=raster_cfg))
+            for step in range(n_steps):
+                Image.fromarray(img).save(root / "dynamics" / f"{view}_{step}.jpg", quality=95)
+                Image.fromarray(np.full((h, w), 255, np.uint8)).save(
+                    root / "dynamic_masks" / f"{view}_{step}.png")
+    return cams
+
+
+@torch.no_grad()
+def pairs_needed(pack, cam) -> int:
+    """(Gaussian, tile) pairs one view of ``pack`` needs."""
+    from neuma_tpu_torch.render.rasterize import _project, _tile_ranges
+
+    _, visible, mean2d, _, radius = _project(pack.xyz, pack.get_covariance(), cam)
+    x0, y0, x1, y1, _, _ = _tile_ranges(mean2d, radius, cam.width, cam.height)
+    return int(torch.where(visible & (radius > 0), (x1 - x0) * (y1 - y0), 0).sum())
+
+
+@torch.no_grad()
+def regist_kernel_inputs(pack, cam, raster_cfg, gen):
+    """K4/K5 inputs of one registration view: ``pack``'s pair features
+    (SH 0 colours) and random dT, dC, in ``check_composite``'s layout."""
+    from neuma_tpu_torch.render.rasterize import _build_aligned_pairs, _project, _sh_colors
+
+    depth, visible, mean2d, conic, radius = _project(pack.xyz, pack.get_covariance(), cam)
+    colors = _sh_colors(pack.get_features, pack.xyz, cam.camera_center, 0)
+    pair_gid, counts, tile_start, tiles_x, _, overflow = _build_aligned_pairs(
+        depth, visible, mean2d, radius, cam.width, cam.height, raster_cfg)
+    feats = torch.cat([mean2d, conic, pack.get_opacity.reshape(-1, 1), colors], 1)
+    nt = counts.shape[0]
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(pack.xyz.device)
+    return dict(pf=feats[pair_gid].contiguous(), tile_start=tile_start.to(torch.int32),
+                counts=counts.to(torch.int32), tiles_x=tiles_x, raster_overflow=bool(overflow),
+                pairs_needed=pairs_needed(pack, cam), max_pairs=raster_cfg.max_pairs,
+                dT=0.1 * rnd(nt, 256), dC=0.1 * rnd(nt, 768))
+
+
+def regist_small_copy() -> dict:
+    """``tests/test_register.py``'s scene (150 SH-1 Gaussians, three 48x48
+    views, GT rendered by the port on the CPU at a known Sim(3)) with
+    lambda_dssim 0.2: 10 iterations twice on the card and once on the
+    CPU (losses rtol 1e-4, params a scaled 1e-4; card runs bitwise)."""
+    from neuma_tpu_torch.render.camera import Camera
+    from neuma_tpu_torch.render.gaussians import create_from_points
+    from neuma_tpu_torch.render.rasterize import RasterConfig, rasterize
+    from neuma_tpu_torch.train import register as reg
+
+    rng = np.random.default_rng(0)
+    pts = (0.2 * rng.standard_normal((150, 3))).astype(np.float32)
+    pack = create_from_points(pts, rng.random((150, 3)).astype(np.float32), sh_degree=1)
+    true = reg.init_sim3_params(reg.RegisterConfig(init_r_deg=(8.0, -5.0, 4.0),
+                                                   init_t=(0.06, -0.04, 0.05), init_s=1.15))
+    cams = [Camera.look_at(eye=np.array(e), target=np.zeros(3), fov=0.9, width=48, height=48)
+            for e in ([0, 0.1, -1.5], [-1.5, 0.1, 0.0], [0.9, 1.2, 0.9])]
+    rcfg = RasterConfig(max_pairs=8192, max_per_tile=256)
+    with torch.no_grad():
+        moved = reg.apply_sim3(true, pack)
+        gt = torch.stack([rasterize(moved.xyz, moved.get_covariance(), moved.get_opacity, c,
+                                    torch.ones(3), shs=moved.get_features, sh_degree=1, cfg=rcfg)
+                          for c in cams])
+    fit = reg.RegisterConfig(iterations=10, lr_r=0.02, lr_t=0.02, lr_s=0.02,
+                             learning_rate_alpha=0.05, lambda_dssim=0.2)
+    runs = [reg.register_gaussians(pack, cams, gt, fit, torch.ones(3), raster_cfg=rcfg,
+                                   log_every=1, device=d) for d in ("cuda", "cuda", "cpu")]
+    (a, b, cpu) = runs
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a.losses, cpu.losses))
+    perr = max(scaled_err(torch.as_tensor(a.params[k]), torch.as_tensor(cpu.params[k]))
+               for k in ("r", "t", "s"))
+    bitwise = a.losses == b.losses and all(np.array_equal(a.params[k], b.params[k])
+                                           for k in ("r", "t", "s"))
+    return dict(losses_card=a.losses, losses_cpu=cpu.losses, loss_rel_gap=gap, params_err=perr,
+                bitwise=bitwise)
+
+
+def _metrics_means(path: Path):
+    """The means of a metrics.txt."""
+    head = path.read_text().split("\nper-frame:\n")[0]
+    return {k: float(v) for k, v in (line.split(": ") for line in head.strip().splitlines())}
+
+
+def evaluate_phase_part(app_root: Path) -> dict:
+    """(c): the evaluation CLI on phase 14's render-CLI frames against
+    phase 13's ground truth (800x800, the default crop, ``--video``);
+    ``evaluate_frames`` on the card and the CPU; ms per frame of each
+    metric on the card (CUDA events, one cropped frame pair)."""
+    from neuma_tpu_torch.apps import evaluate
+    from neuma_tpu_torch.train.losses import psnr, ssim
+    from neuma_tpu_torch.train.lpips import LPIPSMetric, lpips
+    from neuma_tpu_torch.utils.video import _natsorted
+
+    render_dir = app_root / "logs" / "bb" / "results" / "serve"
+    gt_dir = app_root / "dataset" / "data_dynamic"
+    out = REPO / "build" / "chip_smoke_eval"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    evaluate.main(["-r", str(render_dir), "-g", str(gt_dir), "--render_glob", "d_2_*.png",
+                   "--gt_glob", "d_2_*.png", "--video", "-o", str(out / "metrics.txt")])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    means = _metrics_means(out / "metrics.txt")
+    video = list(render_dir.glob("side_by_side.*"))
+    rp = _natsorted(render_dir.glob("d_2_*.png"))
+    gp = _natsorted(gt_dir.glob("d_2_*.png"))
+    n = min(len(rp), len(gp))
+    crop = [220, 580, 220, 580]
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        rows[dev] = evaluate.evaluate_frames(rp[:n], gp[:n], crop,
+                                             evaluate._lpips_model(device=dev), device=dev)
+    gaps = {k: max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                   for a, b in zip(rows["cuda"], rows["cpu"]))
+            for k in rows["cpu"][0]}
+    r = torch.as_tensor(evaluate._read_rgb(rp[0])[220:580, 220:580].transpose(2, 0, 1).copy()).cuda()
+    g = torch.as_tensor(evaluate._read_rgb(gp[0])[220:580, 220:580].transpose(2, 0, 1).copy()).cuda()
+    metric = LPIPSMetric(device="cuda")
+    with torch.no_grad():
+        ms = dict(psnr=cuda_ms(lambda: psnr(r, g), 20), ssim=cuda_ms(lambda: ssim(r, g), 20),
+                  lpips=cuda_ms(lambda: lpips(r, g, metric.params), 5))
+    return dict(means=means, frames=n, cli_s=cli_s, video=[str(v) for v in video],
+                rows_card=rows["cuda"], rows_cpu=rows["cpu"], rel_gaps=gaps, ms_per_frame=ms)
+
+
+def regist_phase(report, rec) -> bool:
+    """Phase 15: the registration CLI at regist-bun.yaml's widths, its
+    small copy card vs CPU, and the evaluation CLI (see the module
+    docstring)."""
+    import shutil
+
+    from neuma_tpu_torch import kernels
+    from neuma_tpu_torch.apps import regist
+    from neuma_tpu_torch.data.ply import load_ply_points
+    from neuma_tpu_torch.data.readers import VideoDataset
+    from neuma_tpu_torch.render.rasterize import RasterConfig
+    from neuma_tpu_torch.train import register as reg
+    from neuma_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "chip_smoke_regist"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    log(f"REGIST_CUTS {json.dumps(REGIST_CUTS)}")
+
+    # (a) the registration CLI
+    t0 = time.perf_counter()
+    capture = root / "capture"
+    cfg_path = root / "regist.yaml"
+    cfg = load_config(REGIST_CONFIG, [
+        f"root={root / 'logs'}", "name=bun", f"gaussian.kernels_path={root / 'kernels.ply'}",
+        f"particle_data.mesh_path={root / 'mesh.obj'}", f"video_data.data.path={capture}",
+        f"register.iterations={REGIST_ITERS}", f"register.scheduler.max_steps={REGIST_ITERS}",
+        f"register.log_every={REGIST_LOG_EVERY}"])
+    cfg.save(cfg_path)
+    raw = fabricate_raw_gaussians(root, 30000, np.array([0.3, -0.2, 0.5]), 2.0, seed=0).to("cuda")
+    init = reg.RegisterConfig(init_r_deg=tuple(cfg.register.INIT_R),
+                              init_t=tuple(cfg.register.INIT_T), init_s=float(cfg.register.INIT_S))
+    off = REGIST_TRUE_OFFSET
+    true = reg.RegisterConfig(
+        init_r_deg=tuple(a + b for a, b in zip(init.init_r_deg, off["r_deg"])),
+        init_t=tuple(a + b for a, b in zip(init.init_t, off["t"])), init_s=init.init_s * off["s"])
+    with torch.no_grad():
+        moved_true = reg.apply_sim3(reg.init_sim3_params(true, "cuda"), raw)
+        moved_init = reg.apply_sim3(reg.init_sim3_params(init, "cuda"), raw)
+    capture.mkdir()
+    write_capture_metadata(capture, moved_true.xyz.mean(0).cpu().numpy().astype(np.float64),
+                           REGIST_VIEWS, 1920, 1080)
+    rcfg = RasterConfig(max_pairs=int(cfg.raster.max_pairs), max_per_tile=int(cfg.raster.max_per_tile))
+    cams = write_capture_frames(capture, cfg, moved_true, rcfg, n_steps=2)
+    fab_s = time.perf_counter() - t0
+    pairs = {v: dict(init=pairs_needed(moved_init, c), true=pairs_needed(moved_true, c))
+             for v, c in zip(REGIST_VIEWS, cams)}
+    fits = all(p["init"] <= rcfg.max_pairs and p["true"] <= rcfg.max_pairs for p in pairs.values())
+    log(f"[regist] 30,000 SH-0 Gaussians, 3 views 1920x1080, max_pairs {rcfg.max_pairs}: pairs "
+        f"needed {json.dumps(pairs)}; fit {fits}; fabricate {fab_s:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run = regist.main(["-c", str(cfg_path)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    exp = root / "logs" / "bun"
+    files = ("registered_params.npz", "registered_kernels.ply", "registered_particles.ply")
+    written = all((exp / f).is_file() for f in files)
+    per_iter = [(t1 - t0_) / (i1 - i0) * 1e3 for t0_, t1, i0, i1 in
+                zip(run.log_times, run.log_times[1:], run.log_iters, run.log_iters[1:])]
+    ms_iter = statistics.median(per_iter) if per_iter else float("nan")
+    finite = bool(run.losses) and all(np.isfinite(run.losses))
+    descends = len(run.losses) >= 2 and run.losses[-1] < run.losses[0]
+    want = {"composite": 3 * REGIST_ITERS, "composite_bwd": 3 * REGIST_ITERS,
+            "p2g": 0, "g2p": 0, "g2p_derivs": 0}
+    gate_launch = all(launches.get(k, 0) == v for k, v in want.items())
+    n_particles = len(load_ply_points(exp / files[2])) if written else 0
+    log(f"[regist] CLI {cli_s:.2f} s (stage A {run.stage_a_s:.2f} s, stage B "
+        f"{run.stage_b_s:.2f} s, {n_particles} particles); {ms_iter:.2f} ms/iteration (host "
+        f"clock between log points, each ending in the loss read; median after the first); "
+        f"peak {peak_gib:.2f} GiB; losses {[round(x, 6) for x in run.losses]}; params "
+        f"{ {k: v.tolist() for k, v in run.params.items()} }; launches {launches} (want {want}); "
+        f"files written {written}")
+
+    before = {f: (exp / f).read_bytes() for f in files} if written else {}
+    kernels.reset_launches()
+    rerun = regist.main(["-c", str(cfg_path)])
+    relaunch = dict(kernels.launches)
+    noop = (rerun.stage_a_s is None and rerun.stage_b_s is None and not relaunch.get("composite")
+            and all((exp / f).read_bytes() == before.get(f) for f in files))
+    log(f"[regist] second run: no-op {noop} (launches {relaunch})")
+
+    # K4 and K5 at the registration's shapes (view r_0 at INIT)
+    inp = regist_kernel_inputs(moved_init, cams[0], rcfg, torch.Generator().manual_seed(0))
+    checks_ok = check_composite("regist", inp, rec)
+    log_checks("regist", rec, ("composite", "composite_bwd"))
+    # the device's share of 5 iterations at the CLI's scene and frames
+    ds = VideoDataset(cfg.video_data.to_dict())
+    gt = torch.as_tensor(np.stack([ds.get(v, 0).image for v in ds.views]))
+    fit5 = dataclasses.replace(init, iterations=5, lr_r=float(cfg.register.lr_r),
+                               lr_t=float(cfg.register.lr_t), lr_s=float(cfg.register.lr_s))
+    prof = profile_step(lambda: reg.register_gaussians(raw, cams, gt, fit5, torch.zeros(3),
+                                                       raster_cfg=rcfg, log_every=5), ())
+
+    # (b) the small copy
+    t0 = time.perf_counter()
+    small = regist_small_copy()
+    small_s = time.perf_counter() - t0
+    log(f"[regist:small] 150 SH-1 Gaussians, 3 views 48x48, lambda_dssim 0.2, 10 iterations: "
+        f"losses card {small['losses_card']} cpu {small['losses_cpu']}; rel gap "
+        f"{small['loss_rel_gap']:.2e} (bound 1e-4), params scaled err {small['params_err']:.2e} "
+        f"(bound 1e-4); two card runs bitwise {small['bitwise']}; {small_s:.1f} s")
+
+    # (c) the evaluation CLI
+    ev = evaluate_phase_part(REPO / "build" / "chip_smoke_app")
+    eval_ok = (set(ev["means"]) == {"psnr", "ssim", "lpips_vgg_rand"}
+               and all(np.isfinite(v) for v in ev["means"].values()) and bool(ev["video"])
+               and ev["frames"] > 0
+               and all(ev["rel_gaps"][k] <= EVAL_TOL["lpips" if k.startswith("lpips") else k]
+                       for k in ev["rel_gaps"]))
+    log(f"[eval] {ev['frames']} frames 800x800 (crop 220:580), means {ev['means']}, video "
+        f"{ev['video']}; CLI {ev['cli_s']:.2f} s; per-frame rel gap card vs CPU "
+        f"{ {k: f'{v:.2e}' for k, v in ev['rel_gaps'].items()} } (bounds {EVAL_TOL}); ms per "
+        f"frame on the card {ev['ms_per_frame']}")
+
+    phase_s = time.perf_counter() - t_phase
+    log(f"[regist] phase {phase_s:.1f} s")
+    report["regist"] = dict(
+        cuts=REGIST_CUTS, pairs=pairs, fabricate_s=fab_s, cli_s=cli_s, stage_a_s=run.stage_a_s,
+        stage_b_s=run.stage_b_s, ms_per_iteration=ms_iter, per_iteration_ms=per_iter,
+        peak_gib=peak_gib, losses=run.losses, launches=launches, rerun_noop=noop, profile=prof,
+        n_particles=n_particles, small=small, small_s=small_s, evaluate=ev, seconds=phase_s)
+    ok = (fits and written and finite and descends and gate_launch and noop and checks_ok
+          and small["loss_rel_gap"] <= 1e-4 and small["params_err"] <= 1e-4 and small["bitwise"]
+          and eval_ok)
+    if not ok:
+        log("[regist] FAILED")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1687,6 +2091,8 @@ def main() -> int:
     ok_app = ok_dense and app_phase(report, rec)
     # 14. the serving CLIs
     ok_serve = ok_app and serve_phase(report, scenes)
+    # 15. the registration and evaluation CLIs
+    ok_regist = ok_serve and regist_phase(report, rec)
     report.update(kernels=rec, launches_train_headline=launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "build"
@@ -1695,7 +2101,7 @@ def main() -> int:
     if not ok:
         log("[train] FAILED")
         return 1
-    if not (ok_dense and ok_app and ok_serve):
+    if not (ok_dense and ok_app and ok_serve and ok_regist):
         return 1
 
     sources = {
@@ -1715,6 +2121,7 @@ def main() -> int:
             "launches_app": report["app"]["launches"].get(name, 0),
             "launches_render": report["serve"]["render"]["launches"].get(name, 0),
             "launches_inference": report["serve"]["inference"]["launches"].get(name, 0),
+            "launches_regist": report["regist"]["launches"].get(name, 0),
             "check": "pass", "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

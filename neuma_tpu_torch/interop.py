@@ -11,6 +11,9 @@ is imported here. Converted:
 * ``MPMConstants``, ``Statics`` and ``ParticleState``;
 * ``GaussianPack``'s arrays, ``BindingTable``'s ``indices`` and
   ``weights``, and ``Camera``'s matrices, fov and size;
+* ``LPIPSParams`` (``lpips_params_from_numpy``: its ``convs`` pairs,
+  ``heads`` and ``pretrained``) and the registration's Sim(3) params
+  (``sim3_params_from_numpy``: ``r``, ``t``, ``s``);
 * materials (``material_from_numpy``): every preset (``log_E`` and its
   ``sigma_y`` / ``friction_angle``), every meta family (its MLP tree,
   or the Spline pair's knot values ``yk_f`` / ``yk_g`` / ``yk_h``), and
@@ -42,6 +45,7 @@ from .nn.mlp import LORA_LEAVES
 from .render.binding import BindingTable
 from .render.camera import Camera
 from .render.gaussians import GaussianPack
+from .train.lpips import LPIPSParams
 from .train.optim import RAdamState
 
 
@@ -128,6 +132,16 @@ def camera_from_numpy(c, device="cpu") -> Camera:
         znear=float(c.znear),
         zfar=float(c.zfar),
     )
+
+
+def lpips_params_from_numpy(p, device="cpu") -> LPIPSParams:
+    return LPIPSParams.from_numpy(p.convs, p.heads, bool(p.pretrained), device)
+
+
+def sim3_params_from_numpy(params, device="cpu") -> dict:
+    """{"r", "t", "s"} numpy (a ``RegistrationResult.params`` or the
+    arrays of ``registered_params.npz``) -> float32 tensors."""
+    return {k: _t(np.asarray(params[k], np.float32), device) for k in ("r", "t", "s")}
 
 
 def lora_leaves(tree) -> list:

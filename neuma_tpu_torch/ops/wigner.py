@@ -27,7 +27,9 @@ def _band1_matrix(R: torch.Tensor) -> torch.Tensor:
 def _cs_conjugate(D: torch.Tensor, l: int) -> torch.Tensor:
     """I-R basis -> PlenOctree basis (Condon-Shortley (-1)^m signs on its
     constants): S D S with S = diag((-1)^m), m = -l..l."""
-    s = torch.tensor([(-1.0) ** m for m in range(-l, l + 1)], dtype=D.dtype, device=D.device)
+    # built on the device (no host copy, which would wait for the card)
+    m = torch.arange(-l, l + 1, device=D.device)
+    s = (1 - 2 * (m % 2)).to(D.dtype)
     return D * s[:, None] * s[None, :]
 
 

@@ -1,7 +1,7 @@
 """Camera model with 3DGS conventions.
 
 Counterpart of ``neuma_tpu/render/camera.py`` (``Camera``, ``look_at``,
-``get_world2view``, ``get_projection_matrix``, ``fov2focal``,
+``interpolate``, ``get_world2view``, ``get_projection_matrix``, ``fov2focal``,
 ``focal2fov``): matrices are stored
 TRANSPOSED (row-vector convention, ``p_cam = [p, 1] @ world_view``) and
 built in numpy float64 before the float32 cast, as the JAX package does,
@@ -107,6 +107,40 @@ class Camera:
             znear=float(znear),
             zfar=float(zfar),
         )
+
+    @classmethod
+    def interpolate(cls, cam1: "Camera", cam2: "Camera", steps: int) -> list:
+        """``steps`` cameras from ``cam1`` to ``cam2``: the rotations
+        slerped (the shorter arc; ``cam1``'s when the angle is below
+        1e-6), the translations blended linearly, the intrinsics
+        ``cam1``'s (reference ``interpolate_cameras``,
+        camera_utils.py:261-290). On ``cam1``'s device."""
+        from ..ops.rotation import quat_to_rotmat, rotmat_to_quat
+
+        def decompose(cam):  # COLMAP R (stored transposed) and T
+            w2v = cam.world_view.detach().cpu().numpy().T
+            return w2v[:3, :3].T, w2v[:3, 3]
+
+        R1, T1 = decompose(cam1)
+        R2, T2 = decompose(cam2)
+        q1 = rotmat_to_quat(torch.as_tensor(np.ascontiguousarray(R1.T))).numpy()
+        q2 = rotmat_to_quat(torch.as_tensor(np.ascontiguousarray(R2.T))).numpy()
+        if np.dot(q1, q2) < 0:
+            q2 = -q2
+        device = cam1.world_view.device
+        cams = []
+        for t in np.linspace(0.0, 1.0, steps):
+            angle = math.acos(np.clip(np.dot(q1, q2), -1.0, 1.0))
+            if abs(angle) < 1e-6:
+                q = q1
+            else:
+                isin = 1.0 / math.sin(angle)
+                q = math.sin((1 - t) * angle) * isin * q1 + math.sin(t * angle) * isin * q2
+            R = quat_to_rotmat(torch.as_tensor(q)).numpy().T
+            T = (1 - t) * T1 + t * T2
+            cams.append(cls.from_Rt(R.T, T, cam1.fov_x, cam1.fov_y, cam1.width, cam1.height,
+                                    cam1.znear, cam1.zfar, device=device))
+        return cams
 
     @classmethod
     def look_at(

@@ -159,7 +159,7 @@ def _build_aligned_pairs(
     x0, y0, x1, y1, tiles_x, tiles_y = _tile_ranges(mean2d, radius, width, height)
     num_tiles = tiles_x * tiles_y
 
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = torch.full((), float("inf"), device=dev)  # a fill, not a host copy
     order = torch.argsort(torch.where(visible, depth, inf), stable=True)
     x0s, x1s, y0s, y1s = x0[order], x1[order], y0[order], y1[order]
     vis_s = visible[order] & (radius[order] > 0)

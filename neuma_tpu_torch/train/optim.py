@@ -77,6 +77,9 @@ class RAdam:
         if rect:
             r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
         lr = self.lr(state.count)
+        # The step's scalars reach the leaves' device as fills: a host
+        # tensor copied there would wait for the card on every step.
+        on = lambda x, dev: torch.full((), float(x), dtype=torch.float32, device=dev)
         updates, mus, nus = [], [], []
         for i, (g, p) in enumerate(zip(grads, params)):
             if not self._on(i):
@@ -84,17 +87,18 @@ class RAdam:
                 mus.append(None)
                 nus.append(None)
                 continue
+            dev = p.device
             if self.weight_decay:
                 g = g + self.weight_decay * p
             mu = (1.0 - b1) * g + b1 * state.mu[i]
             nu = (1.0 - b2) * (g * g) + b2 * state.nu[i]
-            mu_hat = mu / (1.0 - b1t).to(mu.device)
+            mu_hat = mu / on(1.0 - b1t, dev)
             if rect:
-                nu_hat = nu / (1.0 - b2t).to(nu.device)
-                u = r.to(mu.device) * mu_hat / (torch.sqrt(nu_hat) + self.eps)
+                nu_hat = nu / on(1.0 - b2t, dev)
+                u = on(r, dev) * mu_hat / (torch.sqrt(nu_hat) + self.eps)
             else:
                 u = mu_hat
-            updates.append(-lr.to(u.device) * u)
+            updates.append(-on(lr, dev) * u)
             mus.append(mu)
             nus.append(nu)
         return updates, RAdamState(t, mus, nus)

@@ -38,6 +38,7 @@ from neuma_tpu_torch.data.readers import VideoDataset
 from neuma_tpu_torch.utils.config import load_config
 
 from test_apps import make_assets, make_synthetic_dataset, write_config
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 THREE = ["constitution.num_epochs=3"]

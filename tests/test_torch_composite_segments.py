@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from neuma_tpu_torch.render import raster_kernel as rk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 K4_TOL = 2e-5
 K5_TOL = 1e-5

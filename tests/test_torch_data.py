@@ -49,6 +49,7 @@ from neuma_tpu_torch.utils import config as tconfig
 
 from test_apps import make_assets, make_synthetic_dataset
 from test_realcapture import make_real_capture
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CONFIG = "configs/synthetic/finetune-bb.yaml"
 OVERRIDES = ["seed=7", "sim.num_grids=48", "raster.segment=16", "velocity.views=[d_0, d_1]",

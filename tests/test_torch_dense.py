@@ -36,6 +36,7 @@ from neuma_tpu_torch.materials.meta import (
 from neuma_tpu_torch.sim import blocked as tblocked
 from neuma_tpu_torch.sim import mpm as tmpm
 from neuma_tpu_torch.sim import p2g_kernel as tpk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 G, N, TOL = 20, 400, 1e-5
 

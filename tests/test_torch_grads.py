@@ -40,6 +40,7 @@ from neuma_tpu_torch.ops import svd3 as tsvd
 from neuma_tpu_torch.render import binding as tbind
 from neuma_tpu_torch.sim import mpm as tmpm
 from neuma_tpu_torch.sim import p2g_kernel as tpk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # neuma_tpu.ops re-exports an `svd3` function under the submodule's name.
 jsvd = importlib.import_module("neuma_tpu.ops.svd3")

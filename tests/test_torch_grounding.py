@@ -33,6 +33,7 @@ from neuma_tpu_torch.materials.meta import (
 )
 from neuma_tpu_torch.render.rasterize import RasterConfig
 from neuma_tpu_torch.train import grounding as tground
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, G, SIZE, FRAMES, SUBSTEPS = 800, 32, 64, 2, 2
 

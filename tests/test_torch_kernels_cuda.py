@@ -24,7 +24,11 @@ and ``g2p_core`` on a slab grid (K1, K2, K3 with their VJPs) within a
 scaled 1e-5 of the CPU and bitwise repeatable; ``sim.rollout.rollout``
 bitwise equal to a loop of steps; the inference CLI on a small copy of
 multiobj-bb-cc.yaml within 1 of 255 levels per pixel and a scaled 1e-5
-per step's positions of the CPU.
+per step's positions of the CPU. The registration and evaluation
+surface: ``register_gaussians`` on a small scene (K4, K5, the D-SSIM
+gradient, the SH rotation) within rtol 1e-4 of the CPU per logged loss
+and a scaled 1e-4 per parameter, bitwise repeatable; SSIM and LPIPS-VGG
+on the card within rtol 1e-5 and 1e-4 of the CPU with TF32 off.
 """
 import numpy as np
 import pytest
@@ -34,6 +38,7 @@ from neuma_tpu_torch.core.types import MPMConstants, ParticleState, Statics
 from neuma_tpu_torch.render import raster_kernel as rk
 from neuma_tpu_torch.sim import p2g_kernel as pk
 from neuma_tpu_torch.sim.mpm import _p2g_terms, mpm_step_diff
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture
@@ -481,3 +486,56 @@ def test_inference_app_small_card_matches_cpu(cuda, tmp_path):
     out = chip_smoke.serve_inference_card_vs_cpu(tmp_path)
     assert out["png_names_equal"] and out["n_png"] == 21 and out["png_gap"] <= 1
     assert out["ply_names_equal"] and out["n_ply"] == 20 and out["ply_err"] <= 1e-5
+
+
+@pytest.mark.cuda
+def test_register_small_card_matches_cpu_and_repeats(cuda):
+    """``register_gaussians`` on ``tests/test_register.py``'s scene (150
+    SH-1 Gaussians, three 48x48 views, lambda_dssim 0.2, so K4, K5, the
+    SSIM gradient and the SH rotation run) for 10 iterations: each
+    logged loss within rtol 1e-4 of the CPU's, the params within a scaled
+    1e-4, and two card runs bitwise equal (``chip_smoke.regist_small_copy``)."""
+    import chip_smoke
+
+    out = chip_smoke.regist_small_copy()
+    assert len(out["losses_card"]) == 10
+    assert out["loss_rel_gap"] <= 1e-4 and out["params_err"] <= 1e-4 and out["bitwise"]
+
+
+@pytest.mark.cuda
+def test_ssim_and_lpips_card_match_cpu(cuda):
+    """SSIM (value and input gradient) and LPIPS-VGG (random weights) on a
+    (2, 3, 45, 61) batch: card within rtol 1e-5 (SSIM) and 1e-4 (LPIPS)
+    of the CPU, with TF32 off inside the metrics even when the global
+    flag allows it, and the SSIM gradient bitwise equal over two card
+    runs (deterministic cuDNN)."""
+    from neuma_tpu_torch.train.losses import ssim
+    from neuma_tpu_torch.train.lpips import _init_random, lpips
+
+    rng = np.random.default_rng(4)
+    a = torch.as_tensor(rng.random((2, 3, 45, 61)).astype(np.float32))
+    b = torch.as_tensor(rng.random((2, 3, 45, 61)).astype(np.float32))
+
+    def ssim_and_grad(device):
+        x = a.to(device).requires_grad_(True)
+        value = ssim(x, b.to(device))
+        (g,) = torch.autograd.grad(value, x)
+        return value.detach().cpu(), g.cpu()
+
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        v_gpu, g_gpu = ssim_and_grad(cuda)
+        _, g_gpu2 = ssim_and_grad(cuda)
+        params = _init_random(device=cuda)
+        with torch.no_grad():
+            l_gpu = lpips(a.to(cuda), b.to(cuda), params).cpu()
+        assert torch.backends.cudnn.allow_tf32  # restored after the metric
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    v_cpu, g_cpu = ssim_and_grad("cpu")
+    with torch.no_grad():
+        l_cpu = lpips(a, b, _init_random())
+    torch.testing.assert_close(v_gpu, v_cpu, rtol=1e-5, atol=0)
+    assert _scaled_err(g_gpu, g_cpu) <= 1e-5 and torch.equal(g_gpu, g_gpu2)
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-4, atol=0)

@@ -21,6 +21,7 @@ from neuma_tpu_torch.materials.meta import (
 )
 from neuma_tpu_torch.nn import mlp as tmlp
 from neuma_tpu_torch.ops.svd3 import svd3
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _np(tree):

@@ -17,6 +17,7 @@ import torch
 from neuma_tpu import materials as jm
 from neuma_tpu_torch import interop
 from neuma_tpu_torch import materials as tm
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 PRESETS = [

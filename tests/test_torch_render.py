@@ -29,6 +29,7 @@ from neuma_tpu_torch.render import gaussians as tgs
 from neuma_tpu_torch.render import raster_kernel as trk
 from neuma_tpu_torch.render import rasterize as tras
 from neuma_tpu_torch.render.camera import Camera
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # neuma_tpu.render re-exports a `rasterize` function under the submodule's name.
 jras = importlib.import_module("neuma_tpu.render.rasterize")

@@ -25,6 +25,7 @@ from neuma_tpu.render.camera import Camera as JaxCamera
 from neuma_tpu_torch import interop
 from neuma_tpu_torch.render import raster_kernel as trk
 from neuma_tpu_torch.render import rasterize as tras
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # neuma_tpu.render re-exports a `rasterize` function under the submodule's name.
 jras = importlib.import_module("neuma_tpu.render.rasterize")

@@ -44,6 +44,7 @@ from neuma_tpu_torch.materials.meta import (
 from neuma_tpu_torch.render.rasterize import RasterConfig
 from neuma_tpu_torch.sim.mpm import trainable_params
 from neuma_tpu_torch.train import grounding as tground
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, G, SIZE, FRAMES, SUBSTEPS = 600, 32, 48, 3, 2
 INIT_V = np.array([0.4, -0.2, 0.1], np.float32)

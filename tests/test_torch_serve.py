@@ -40,6 +40,7 @@ from neuma_tpu_torch.data.ply import load_ply_points
 
 from chip_smoke import reference_state_dict
 from test_apps import make_assets, make_synthetic_dataset, write_config
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 PLY_TOL = 1e-5

@@ -20,6 +20,7 @@ from neuma_tpu.sim import p2g_kernel as jpk
 from neuma_tpu_torch import interop
 from neuma_tpu_torch.sim import mpm as tmpm
 from neuma_tpu_torch.sim import p2g_kernel as tpk
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _scene(n=1500, g=32, bc="noslip", seed=0):

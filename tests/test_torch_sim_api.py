@@ -30,6 +30,7 @@ from neuma_tpu_torch import interop, sim as tsim
 from neuma_tpu_torch.core.types import ParticleState as TState
 from neuma_tpu_torch.sim import blocked as tblocked
 from neuma_tpu_torch.sim import rollout as trollout
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 GRIDS = [16, 32]

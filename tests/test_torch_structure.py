@@ -14,6 +14,7 @@ import jax  # noqa: F401  (test files import both frameworks)
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "neuma_tpu_torch"
@@ -134,6 +135,16 @@ def test_entry_points_raise_without_cuda():
                  lambda: prepare_simulation_data("any-dir", "any.ply"),
                  lambda: load_prepared("any-dir"),
                  lambda: build_statics([]), lambda: build_initial_state([])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    from neuma_tpu_torch.apps import evaluate, regist
+    from neuma_tpu_torch.train.lpips import LPIPSMetric
+    from neuma_tpu_torch.train.register import RegisterConfig, register_gaussians
+
+    for call in (lambda: regist.main(["-c", "any-config.yaml"]),
+                 lambda: evaluate.main(["-r", "any-dir", "-g", "any-dir"]),
+                 lambda: register_gaussians(None, [], None, RegisterConfig(), None),
+                 lambda: LPIPSMetric()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

@@ -34,6 +34,7 @@ from neuma_tpu_torch.train import optim as toptim
 from neuma_tpu_torch.train import schedulers as tsched
 
 from test_torch_rollout_grad import make_scenes, scaled_err
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _leaves(seed, shapes=((4, 3), (3,), (2, 5))):

@@ -29,6 +29,7 @@ from neuma_tpu_torch.materials.meta import (
 from neuma_tpu_torch.sim.mpm import trainable_params
 from neuma_tpu_torch.train import checkpoint as tckpt
 from neuma_tpu_torch.train import optim as toptim
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _materials(widths, weight_norm=False):

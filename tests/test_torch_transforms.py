@@ -29,6 +29,7 @@ from neuma_tpu_torch.ops import rotation as trot
 from neuma_tpu_torch.ops import wigner as twig
 from neuma_tpu_torch.render import transforms as ttr
 from neuma_tpu_torch.utils import video as tvideo
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 
