@@ -130,12 +130,43 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     log points, median), each stage's seconds, the peak memory, and ms
     per frame of each metric (CUDA events), and profiles 5 iterations
     (the device's idle share, time by kernel).
+16. The viewer CLI (``VIEW_CUTS``) on multiobj-bb-cc.yaml at its widths
+    (phase 14's two fabricated objects, 48,068 particles, ``num_grids``
+    42, SH 3, InvariantFull (64, 64), LoRA r 16, ``max_pairs`` 262,144,
+    640x640 views), 40 frames: (a) ``python -m
+    neuma_tpu_torch.apps.visualize`` as a subprocess in
+    ``build/chip_smoke_view/`` (which holds ``base_models/`` with both
+    reference-form base files and the two ``NEUMA_TO_LORA`` LoRA files:
+    phase 13's last and a random one), polled on ``/info`` with a
+    deadline, then the page, ``/info`` (40 frames, both objects,
+    ``adaptors == ["bouncy", "clay"]``), three ``/render`` at 640x640 with
+    at least 1% of the pixels off the background, ``/resimulate`` (an
+    object off; then an adaptor switch through the lazy loader) and both
+    ``/render_path`` payloads (as many frames as ``spline_path``), then
+    terminated; (b) in process, the same CLI's ``main`` with a
+    non-blocking server: launches (``simulate`` K1 = K2 = 40, each
+    ``render_frame`` K4 once, K3 = K5 = 0), K1, K2, K4 and K5 against
+    their plain versions at the scene's shapes (phase 2's bounds; K4's
+    pixels on the plain walk counted), two
+    ``simulate`` runs bitwise, byte-equal JPEGs, 8 concurrent ``/render``
+    requests byte-equal to direct renders, the stages timed with the
+    port's ``PhaseTimer`` (simulate ms per frame, ``/render`` median of 20
+    on the client clock, ``/render_path``, ``/resimulate``, peak memory),
+    one render profiled and three traced by ``profiler_trace``; (c) the
+    small copy (``SERVE_SMALL``, 10 frames, the same panel edits) on the
+    card and the CPU: frames within a scaled 1e-5, 64 px renders within
+    1/255; (d) ``p2g(method="scatter" | "matmul")`` against ``"auto"`` on
+    the scene's first step (a scaled 1e-5, bitwise reruns); on one
+    640x640 view, ``RasterConfig(backend="pallas")`` gives auto's bits,
+    ``"pallas_interpret"`` refuses CUDA tensors, and ``overflow`` fires
+    when ``max_pairs`` is too small.
 
 The scenes follow ``bench.py``'s recipe with random weights from seed 0.
 Output: one JSON line ``{"kernels": [...]}`` (launches counted on the
 headline training path; ``launches_app`` in the CLI run of phase 13;
 ``launches_render`` and ``launches_inference`` in the CLI runs of phase 14;
-``launches_regist`` in the registration CLI run of phase 15),
+``launches_regist`` in the registration CLI run of phase 15;
+``launches_view`` in one ``simulate`` and three renders of phase 16),
 the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 """
@@ -528,7 +559,7 @@ def check_composite(tag, inp, rec) -> bool:
     ok = True
     # K4
     args = (inp["pf"], inp["tile_start"], inp["counts"], inp["tiles_x"])
-    Tk, Ck, lk = rk.composite_fwd(*args)
+    Tk, Ck, lk, exact = rk.composite_fwd(*args, with_exact=True)
     Tp, Cp, lp = rk.composite_fwd_plain(*args)
     torch.cuda.synchronize()
     e4 = max(float((Tk - Tp).abs().max()), float((Ck - Cp).abs().max()))
@@ -549,6 +580,7 @@ def check_composite(tag, inp, rec) -> bool:
         raster_overflow=inp["raster_overflow"], pairs_needed=inp["pairs_needed"],
         device_rows=device_rows(lambda: rk.composite_fwd(*args)),
         work=dict(composite_fwd_work(inp, lk, lib.neuma_composite_seg()),
+                  exact_walk_pixels=int(exact.sum()), exact_walk_tiles=int((exact > 0).sum()),
                   scratch_bytes=4 * lib.neuma_composite_fwd_scratch_words(inp["pf"].shape[0], nt)),
     )
     # K5 on K4's T and last, compared on the rows below tile_start[-1]
@@ -579,7 +611,8 @@ def log_checks(tag, rec, names):
         r = rec[name][tag]
         log(
             f"[check:{tag}] {name}: max err {r['max_abs_err']:.3e} (bound {r['tol']:.0e})"
-            + (f", last mismatches {r['last_mismatch']}" if name == "composite" else "")
+            + (f", last mismatches {r['last_mismatch']}, pixels on the plain walk "
+               f"{r['work']['exact_walk_pixels']}" if name == "composite" else "")
             + f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
             + (f" (all 48 columns {r['bound_ms_48col']:.5f})" if "bound_ms_48col" in r else "")
@@ -1416,10 +1449,12 @@ def _launch_gate(launches, steps, views, frames_extra=0):
     return all(launches.get(k, 0) == v for k, v in want.items()), want
 
 
-def serve_kernel_checks(scene, tag):
-    """K1, K2 and K4 against their plain versions at a serving scene's own
+def serve_kernel_checks(scene, tag, k5=False):
+    """K1, K2 and K4 (and with ``k5`` K5, on K4's T and ``last`` and random
+    cotangents) against their plain versions at a serving scene's own
     shapes (``kernel_inputs`` on a stand-in with the scene's constants,
-    statics, positions, Gaussians and first camera), at phase 2's bounds."""
+    statics, positions, Gaussians and first camera), at phase 2's bounds;
+    K4's count of pixels on the plain walk."""
     from types import SimpleNamespace
 
     from neuma_tpu_torch.render import raster_kernel as rk
@@ -1436,16 +1471,28 @@ def serve_kernel_checks(scene, tag):
     args = (inp["payload_g"], inp["slabs"], inp["c2b_g"], inp["inv_dx"])
     e2 = scaled_err(pk.run_apic_gather(*args), pk.run_apic_gather_plain(*args))
     args = (inp["pf"], inp["tile_start"], inp["counts"], inp["tiles_x"])
-    (Tk, Ck, lk), (Tp, Cp, lp) = rk.composite_fwd(*args), rk.composite_fwd_plain(*args)
+    (Tk, Ck, lk, exact), (Tp, Cp, lp) = (rk.composite_fwd(*args, with_exact=True),
+                                         rk.composite_fwd_plain(*args))
     e4 = max(float((Tk - Tp).abs().max()), float((Ck - Cp).abs().max()))
-    mism = int((lk != lp).sum())
+    mism, n_exact = int((lk != lp).sum()), int(exact.sum())
     ok = e1 <= K12_TOL and e2 <= K12_TOL and e4 <= K4_TOL and mism == 0
+    out = dict(p2g=e1, g2p=e2, composite=e4, last_mismatch=mism, exact_walk_pixels=n_exact,
+               n_particles=int(scene.state0.x.shape[0]), pairs=int(inp["counts"].sum()))
+    k5_text = ""
+    if k5:
+        a5 = (*args[:3], Tk, lk, inp["dT"], inp["dC"], inp["tiles_x"])
+        end = int(inp["tile_start"][-1])
+        out["composite_bwd"] = scaled_err_cols(rk.composite_bwd(*a5)[:end],
+                                               rk.composite_bwd_plain(*a5)[:end],
+                                               [slice(j, j + 1) for j in range(9)])
+        ok = ok and out["composite_bwd"] <= K5_TOL
+        k5_text = f", composite_bwd {out['composite_bwd']:.3e} (bound {K5_TOL:.0e})"
     log(f"[serve:{tag}] kernels at the CLI's shapes ({scene.state0.x.shape[0]} particles, "
         f"{scene.constants.num_grids}^3, {int(inp['counts'].sum())} live pairs of "
         f"{inp['max_pairs']}): p2g {e1:.3e}, g2p {e2:.3e} (bound {K12_TOL:.0e}), "
-        f"composite {e4:.3e} (bound {K4_TOL:.0e}), last mismatches {mism}")
-    return ok, dict(p2g=e1, g2p=e2, composite=e4, last_mismatch=mism,
-                    n_particles=int(scene.state0.x.shape[0]), pairs=int(inp["counts"].sum()))
+        f"composite {e4:.3e} (bound {K4_TOL:.0e}), last mismatches {mism}, pixels on the "
+        f"plain walk {n_exact}" + k5_text)
+    return ok, out
 
 
 def rollout_vs_step_loop(scene, frames: int = 4) -> bool:
@@ -1979,6 +2026,463 @@ def regist_phase(report, rec) -> bool:
     return ok
 
 
+
+VIEW_FRAMES = 40
+VIEW_SMALL_FRAMES = 10
+VIEW_SIZE = 640  # the viewer's default width and height
+# The viewer phase's cuts of multiobj-bb-cc.yaml run by apps/visualize.py:
+# depth and data only (the widths stay).
+VIEW_CUTS = {
+    "frames": f"{VIEW_FRAMES} of the CLI's default 100, 1 substep (its default)",
+    "data": "phase 14's two fabricated BouncyBall-like objects (prepared assets, the config's "
+            "sim_bounds, SH 3)",
+    "pretrained_ckpt": "jelly_0300.pt and plasticine_0300.pt of random reference-form weights "
+                       "from seed 42 in one directory (the reference base models are not in "
+                       "the repo)",
+    "load_lora": "logs/bouncyball-v1/finetune/1000_lora.npz is phase 13's last LoRA file, "
+                 "logs/claycat-v1/finetune/1000_lora.npz a random one (seed 8), both in the "
+                 "CLI's working directory",
+}
+# Cameras (eye, target) around the objects' Gaussians (a ball of radius
+# 0.2 at (0, 0.45, 0) in the raw frame, where the viewer draws them).
+VIEW_CAMERAS = (((0.0, 0.6, -1.2), (0.0, 0.45, 0.0)), ((1.0, 0.7, -0.6), (0.0, 0.45, 0.0)),
+                ((-0.8, 0.3, 0.9), (0.0, 0.45, 0.0)))
+VIEW_KEYS = [{"eye": [0.0, 0.6, -1.2], "target": [0.0, 0.45, 0.0], "hold_sec": 0.2},
+             {"eye": [1.0, 0.7, -0.6], "target": [0.0, 0.45, 0.0], "transition_sec": 0.5},
+             {"eye": [-0.8, 0.3, 0.9], "target": [0.0, 0.45, 0.0], "transition_sec": 0.4,
+              "hold_sec": 0.1}]
+
+
+def view_config(root: Path, serve_cfg: Path, lora: Path) -> Path:
+    """Phase 14's multiobj config with the viewer's layout under ``root``:
+    both base files in ``base_models/`` and the two LoRA files at the
+    cwd-relative paths of ``NEUMA_TO_LORA`` (object 1's is ``lora``)."""
+    import shutil
+
+    from neuma_tpu_torch.apps.visualize import NEUMA_TO_BASE, NEUMA_TO_LORA
+    from neuma_tpu_torch.utils.config import load_config
+
+    cfg = load_config(serve_cfg)
+    base = root / "base_models"
+    base.mkdir(parents=True)
+    widths = list(cfg.objects[0].constitution.elasticity.layer_widths)
+    wrng = np.random.default_rng(42)
+    for name in ("bouncy", "clay"):
+        torch.save({"elasticity": reference_state_dict(wrng, widths),
+                    "plasticity": reference_state_dict(wrng, widths)}, base / NEUMA_TO_BASE[name])
+    for i, name in enumerate(("bouncy", "clay")):
+        rel = NEUMA_TO_LORA[name] + ".npz"
+        (root / rel).parent.mkdir(parents=True)
+        if i == 0:
+            shutil.copy(lora, root / rel)
+        else:
+            con = cfg.objects[1].constitution
+            random_lora_file(root / rel, base / NEUMA_TO_BASE[name], widths, int(con.lora.r),
+                             float(con.lora.alpha), seed=8)
+        cfg.objects[i].pretrained_ckpt = str(base / NEUMA_TO_BASE[name])
+        cfg.objects[i].constitution.load_lora = rel
+    path = root / "view.yaml"
+    cfg.save(path)
+    return path
+
+
+def http(url: str, payload=None, timeout: float = 600.0):
+    """(status, content type, body) of a GET, or of a POST of ``payload``
+    as JSON."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def render_query(frame: int, eye, target) -> str:
+    return (f"/render?frame={frame}&ex={eye[0]!r}&ey={eye[1]!r}&ez={eye[2]!r}"
+            f"&tx={target[0]!r}&ty={target[1]!r}&tz={target[2]!r}")
+
+
+def jpeg(arr) -> bytes:
+    """The viewer's encoding of a render (PIL, quality 90)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def off_background(body: bytes):
+    """((H, W) of a JPEG, share of its pixels more than 16 levels off white)."""
+    import io
+
+    from PIL import Image
+
+    arr = np.asarray(Image.open(io.BytesIO(body)), np.int16)
+    return arr.shape[:2], float((np.abs(arr - 255).max(axis=2) > 16).mean())
+
+
+def video_frames(path: Path) -> int:
+    """The frames ``/render_path`` wrote and packed into the video or GIF
+    at ``path`` (its ``path_*.png`` beside it; a GIF writer may merge
+    equal neighbours)."""
+    return len(list(path.parent.glob("path_*.png"))) if path.is_file() else 0
+
+
+def view_endpoint_checks(base: str, frames: int, names, adaptors) -> dict:
+    """Phase 16a's requests against a running viewer at ``base``."""
+    from neuma_tpu_torch.vis.campath import spline_path
+
+    out, t = {}, {}
+    page = http(base + "/")[2].decode()
+    out["page"] = f'width="{VIEW_SIZE}" height="{VIEW_SIZE}"' in page
+    info = json.loads(http(base + "/info")[2])
+    out["info"] = (info["num_frames"] == frames and [o["name"] for o in info["objects"]] == names
+                   and info["adaptors"] == adaptors)
+    shown = []
+    for f, (eye, target) in zip((0, frames // 2, frames - 1), VIEW_CAMERAS):
+        _, ctype, body = http(base + render_query(f, eye, target))
+        shape, share = off_background(body)
+        shown.append(share)
+        out.setdefault("renders", True)
+        out["renders"] &= ctype == "image/jpeg" and shape == (VIEW_SIZE, VIEW_SIZE) and share >= 0.01
+    t0 = time.perf_counter()
+    http(base + "/resimulate", {"objects": {"claycat": {"exists": False}}})
+    t["resimulate_s"] = time.perf_counter() - t0
+    info = json.loads(http(base + "/info")[2])
+    _, _, body = http(base + render_query(1, *VIEW_CAMERAS[0]))
+    out["resimulate"] = ([o["enabled"] for o in info["objects"]] == [True, False]
+                         and info["num_frames"] == frames and off_background(body)[1] >= 0.01)
+    t0 = time.perf_counter()
+    http(base + "/resimulate", {"objects": {"bouncyball": {"adaptor": adaptors[-1], "weight": 0.5,
+                                                           "drop_vel": 0.3}}})
+    t["resimulate_adaptor_s"] = time.perf_counter() - t0
+    o = json.loads(http(base + "/info")[2])["objects"][0]
+    out["adaptor"] = (o["adaptor"], o["weight"], o["drop_vel"]) == (adaptors[-1], 0.5, 0.3)
+    t0 = time.perf_counter()
+    body = http(base + "/render_path", {"keyframes": VIEW_KEYS, "fps": 10, "loop": True})[2]
+    t["render_path_s"] = time.perf_counter() - t0
+    video = Path(json.loads(body)["path"])
+    want = len(spline_path(VIEW_KEYS, fps=10, default_transition_sec=0.4, loop=True,
+                           default_fov=0.9))
+    out["render_path"] = video.is_file() and video_frames(video) == want
+    body = http(base + "/render_path", {"keyframes": VIEW_KEYS[:2], "spline": False,
+                                        "steps_per_segment": 4})[2]
+    legacy = Path(json.loads(body)["path"])
+    out["render_path_legacy"] = legacy.is_file() and video_frames(legacy) == 4
+    return dict(checks=out, seconds=t, off_background=shown, path_frames=want, video=str(video))
+
+
+def view_cli(root: Path, cfg_path: Path, frames: int) -> dict:
+    """16a: ``python -m neuma_tpu_torch.apps.visualize`` as a subprocess in
+    ``root``, polled on ``/info`` until it answers, checked, terminated."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO), TMPDIR=str(root / "tmp"))
+    log_path = root / "visualize.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "neuma_tpu_torch.apps.visualize", "-c", str(cfg_path),
+             "--port", str(port), "--frames", str(frames)],
+            cwd=root, env=env, stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            base, up = f"http://127.0.0.1:{port}", None
+            while time.perf_counter() - t0 < 600 and proc.poll() is None:
+                try:
+                    http(base + "/info", timeout=5)
+                    up = time.perf_counter() - t0
+                    break
+                except OSError:
+                    time.sleep(1.0)
+            if up is None:
+                return dict(ok=False, up_s=None, exit=proc.poll(),
+                            log=log_path.read_text()[-3000:])
+            res = view_endpoint_checks(base, frames, ["bouncyball", "claycat"], ["bouncy", "clay"])
+            res.update(ok=all(res["checks"].values()) and proc.poll() is None, up_s=up)
+            return res
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def run_visualize(cfg_path: Path, frames: int, device):
+    """``apps.visualize.main`` in this process (the working directory holds
+    the LoRA files) with ``DynamicViewer.serve`` made non-blocking on a
+    free port. Returns (viewer, server)."""
+    from unittest import mock
+
+    from neuma_tpu_torch.apps import visualize
+    from neuma_tpu_torch.vis.viewer import DynamicViewer
+
+    servers, original = [], DynamicViewer.serve
+
+    def serve(self, port=8080, blocking=True):
+        servers.append(original(self, port=0, blocking=False))
+        return servers[-1]
+
+    with mock.patch.object(DynamicViewer, "serve", serve):
+        viewer = visualize.main(["-c", str(cfg_path), "--frames", str(frames)], device=device)
+    return viewer, servers[0]
+
+
+def view_camera(i: int, size: int = VIEW_SIZE, device="cpu"):
+    from neuma_tpu_torch.render.camera import Camera
+
+    eye, target = VIEW_CAMERAS[i]
+    return Camera.look_at(eye=np.array(eye), target=np.array(target), fov=0.9, width=size,
+                          height=size, device=device)
+
+
+def view_scene(inst, device):
+    """The instance's enabled objects as one particle system: (constants,
+    statics, state, stress, packs)."""
+    from neuma_tpu_torch.materials.compose import ComposeMaterial
+    from neuma_tpu_torch.sim.initializers import build_initial_state, build_statics
+
+    objs = [o for o in inst.objects if o.enabled]
+    groups = [o.init_data for o in objs]
+    state, sections = build_initial_state(groups, device=device)
+    statics = build_statics(groups, device=device)
+    with torch.no_grad():
+        stress = ComposeMaterial([o.elasticity for o in objs], sections)(state.F)
+    return inst.constants.to(device), statics, state, stress, [o.gaussians.to(device) for o in objs]
+
+
+def view_backends(inst, device) -> dict:
+    """16d: ``p2g`` scatter and matmul against auto on the scene's first
+    step; the raster backends on one view of the last frame: ``"pallas"``
+    gives auto's bits on CUDA tensors, ``"pallas_interpret"`` refuses
+    them, and the kernel path's ``overflow`` fires when ``max_pairs`` is
+    too small."""
+    from neuma_tpu_torch.render.rasterize import rasterize_with_aux
+    from neuma_tpu_torch.sim import mpm
+
+    c, statics, state, stress, packs = view_scene(inst, device)
+    out = {}
+    with torch.no_grad():
+        auto = mpm.p2g(c, statics, state, stress)
+        for method in ("scatter", "matmul"):
+            a = mpm.p2g(c, statics, state, stress, method=method)
+            b = mpm.p2g(c, statics, state, stress, method=method)
+            out[f"p2g_{method}"] = dict(
+                grid_m=scaled_err(a[0], auto[0]), grid_mv=scaled_err(a[1], auto[1]),
+                bitwise=bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])))
+
+        frame = inst.frames[-1]
+        means = torch.as_tensor(frame["means"], device=device)
+        cov = torch.as_tensor(frame["cov"], device=device)
+        opac = torch.cat([p.get_opacity for p in packs])
+        shs = torch.cat([p.get_features for p in packs])
+        rcfg = inst.raster_cfg
+        render = lambda cfg: rasterize_with_aux(means, cov, opac, view_camera(0, device=device),
+                                                inst.background.to(device), shs=shs,
+                                                sh_degree=packs[0].sh_degree, cfg=cfg)
+        img_auto, aux = render(rcfg)
+        img_pallas, _ = render(dataclasses.replace(rcfg, backend="pallas"))
+        try:
+            render(dataclasses.replace(rcfg, backend="pallas_interpret"))
+            refused = False
+        except RuntimeError:
+            refused = True
+        out["raster"] = dict(
+            pallas_equals_auto=bool(torch.equal(img_pallas, img_auto)),
+            pallas_interpret_refuses_cuda=refused, overflow=bool(aux["overflow"]),
+            overflow_small_max_pairs=bool(
+                render(dataclasses.replace(rcfg, max_pairs=1024))[1]["overflow"]))
+    r = out["raster"]
+    out["ok"] = (all(v["grid_m"] <= K12_TOL and v["grid_mv"] <= K12_TOL and v["bitwise"]
+                     for k, v in out.items() if k.startswith("p2g_"))
+                 and r["pallas_equals_auto"] and r["pallas_interpret_refuses_cuda"]
+                 and not r["overflow"] and r["overflow_small_max_pairs"])
+    return out
+
+
+def view_small_copy(small_cfg: Path) -> dict:
+    """16c: phase 14's small multiobj copy (``SERVE_SMALL``) through the
+    CLI's ``main`` on the card and on the CPU, the same panel edits on
+    both: every frame's means and covariances, and a 64 px render of
+    three."""
+    edits = [("bouncyball", {"drop_vel": 0.8, "weight": 0.5}), ("claycat", {"drop_vel": 0.2})]
+    runs = {}
+    for name, device in (("card", "cuda"), ("cpu", "cpu")):
+        viewer, server = run_visualize(small_cfg, VIEW_SMALL_FRAMES, device)
+        server.shutdown()
+        server.server_close()
+        inst = viewer.instance
+        for obj, settings in edits:
+            inst.apply_object_settings(obj, settings)
+        inst.simulate()
+        renders = [inst.render_frame(f, view_camera(i, 64)) for i, f in
+                   enumerate((0, VIEW_SMALL_FRAMES // 2, VIEW_SMALL_FRAMES - 1))]
+        runs[name] = ([dict(f) for f in inst.frames], renders)
+    (fc, rc), (fp, rp) = runs["card"], runs["cpu"]
+    pos_err = max(scaled_err(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
+                  for a, b in zip(fc, fp) for k in ("means", "cov"))
+    px_gap = max(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) for a, b in zip(rc, rp))
+    return dict(n_particles=int(sum(o.init_data.num_particles for o in inst.objects)),
+                frames=len(fc), frames_equal_count=len(fc) == len(fp) == VIEW_SMALL_FRAMES,
+                pos_err=pos_err, px_gap=px_gap,
+                moved=float(np.abs(fc[-1]["means"] - fc[0]["means"]).max()))
+
+
+def view_phase(report, serve_root: Path, lora: Path) -> bool:
+    """Phase 16: the viewer CLI end to end on the card (see the module
+    docstring)."""
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from neuma_tpu_torch import kernels
+    from neuma_tpu_torch.utils.profiling import PhaseTimer, profiler_trace
+
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "chip_smoke_view"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "tmp").mkdir(parents=True)  # the viewer's /render_path frames
+    log(f"VIEW_CUTS {json.dumps(VIEW_CUTS)}")
+    smi = nvidia_smi()
+    cfg_path = view_config(root, serve_root / "full" / "multiobj.yaml", lora)
+
+    # (a) the CLI as a subprocess
+    cli = view_cli(root, cfg_path, VIEW_FRAMES)
+    log(f"[view:cli] python -m neuma_tpu_torch.apps.visualize --frames {VIEW_FRAMES}: up after "
+        f"{cli.get('up_s')} s; checks {cli.get('checks')}; pixels off the background "
+        f"{cli.get('off_background')}; spline path {cli.get('path_frames')} frames "
+        f"({cli.get('video')}); host seconds {cli.get('seconds')}")
+    if not cli["ok"]:
+        log(f"[view:cli] FAILED; exit {cli.get('exit')}; log tail:\n{cli.get('log', '')}")
+
+    # (b) in process: the same CLI's main, its instance and a viewer on port 0
+    prev_cwd, prev_tmp = os.getcwd(), tempfile.tempdir
+    os.chdir(root)
+    tempfile.tempdir = str(root / "tmp")  # /render_path's frames stay under build/
+    timer = PhaseTimer()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with timer.phase("main (load + simulate)"):
+            viewer, server = run_visualize(cfg_path, VIEW_FRAMES, "cuda")
+        launches_main = dict(kernels.launches)
+        inst = viewer.instance
+        first = [dict(f) for f in inst.frames]
+        kernels.reset_launches()
+        with timer.phase("simulate"):
+            inst.simulate()
+        launches = dict(kernels.launches)
+        bitwise_sim = len(first) == len(inst.frames) == VIEW_FRAMES and all(
+            np.array_equal(a[k], b[k]) for a, b in zip(first, inst.frames) for k in a)
+        per_render, imgs = [], []
+        for i in range(3):
+            kernels.reset_launches()
+            with timer.phase("render_frame"):
+                imgs.append(inst.render_frame(i * 13, view_camera(i)))
+            per_render.append(dict(kernels.launches))
+        launches["composite"] = sum(r.get("composite", 0) for r in per_render)
+        want = {"p2g": VIEW_FRAMES, "g2p": VIEW_FRAMES, "g2p_derivs": 0, "composite": 3,
+                "composite_bwd": 0}
+        gate = (all(launches.get(k, 0) == v for k, v in want.items())
+                and all(launches_main.get(k, 0) == want[k] for k in ("p2g", "g2p", "g2p_derivs",
+                                                                     "composite_bwd"))
+                and not launches_main.get("composite")
+                and all(r.get("composite", 0) == 1 and len(r) == 1 for r in per_render))
+        jpeg_equal = jpeg(inst.render_frame(26, view_camera(2))) == jpeg(imgs[2])
+        shown = [float((np.abs(a.astype(np.int16) - 255).max(axis=2) > 16).mean()) for a in imgs]
+
+        # K1, K2, K4 against their plain versions on this scene's inputs
+        from types import SimpleNamespace
+
+        c, statics, state, _, packs = view_scene(inst, "cuda")
+        stand_in = SimpleNamespace(constants=c, statics=statics, state0=state, packs=packs,
+                                   cameras={"view": view_camera(0, device="cuda")},
+                                   raster_cfg=inst.raster_cfg)
+        checks_ok, checks = serve_kernel_checks(stand_in, "view", k5=True)
+
+        # 8 concurrent /render requests against direct renders
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        reqs = [(f * 5, VIEW_CAMERAS[f % 3]) for f in range(8)]
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            bodies = list(pool.map(lambda r: http(base + render_query(r[0], *r[1]))[2], reqs))
+        direct = [jpeg(inst.render_frame(f, view_camera(f // 5 % 3))) for f, _ in reqs]
+        concurrent_ok = bodies == direct
+
+        # host times of the endpoints (client clock)
+        render_ms = []
+        for k in range(20):
+            t0 = time.perf_counter()
+            http(base + render_query(k % VIEW_FRAMES, *VIEW_CAMERAS[k % 3]))
+            render_ms.append((time.perf_counter() - t0) * 1e3)
+        with timer.phase("/render_path"):
+            body = http(base + "/render_path", {"keyframes": VIEW_KEYS, "fps": 10, "loop": True})[2]
+        path_frames = video_frames(Path(json.loads(body)["path"]))
+        with timer.phase("/resimulate"):
+            http(base + "/resimulate", {"objects": {"claycat": {"drop_vel": 0.7}}})
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        render_prof = profile_step(lambda: inst.render_frame(0, view_camera(0)), ())
+        with profiler_trace(str(root / "trace")):
+            for i in range(3):
+                inst.render_frame(i, view_camera(i))
+        trace = root / "trace" / "trace.json"
+        trace_ok = trace.is_file() and trace.stat().st_size > 0
+        server.shutdown()
+        server.server_close()
+        log(f"[view] {smi}; {sum(o.init_data.num_particles for o in inst.objects)} particles, "
+            f"{inst.constants.num_grids}^3, {VIEW_SIZE}x{VIEW_SIZE} views:\n{timer.report()}")
+        sim_s = timer.totals["simulate"]
+        log(f"[view] simulate {sim_s:.3f} s = {sim_s / VIEW_FRAMES * 1e3:.2f} ms/frame; /render "
+            f"median {statistics.median(render_ms):.2f} ms (client clock, 20 requests); "
+            f"/render_path {timer.totals['/render_path']:.2f} s for {path_frames} frames; "
+            f"/resimulate {timer.totals['/resimulate']:.2f} s; peak {peak_gib:.2f} GiB")
+        log(f"[view] launches: main {launches_main}, simulate + 3 renders {launches} (want "
+            f"{want}), per render {per_render}; simulate twice bitwise {bitwise_sim}; JPEG "
+            f"byte-equal {jpeg_equal}; pixels off the background {shown}; 8 concurrent /render "
+            f"byte-equal to direct renders {concurrent_ok}; trace {trace.stat().st_size if trace_ok else 0} "
+            f"bytes")
+
+        # (c) the small copy, card vs CPU
+        t0 = time.perf_counter()
+        small = view_small_copy(serve_root / "small" / "multiobj.yaml")
+        small_s = time.perf_counter() - t0
+        log(f"[view:small] {small['n_particles']} particles, 2 objects, {small['frames']} frames, "
+            f"64 px: positions and covariances scaled err {small['pos_err']:.2e} (bound 1e-5), "
+            f"pixel gap {small['px_gap']} (bound 1), moved {small['moved']:.3e}; {small_s:.1f} s")
+
+        # (d) the alternative backends
+        t0 = time.perf_counter()
+        backends = view_backends(inst, "cuda")
+        log(f"[view:backends] {json.dumps(backends)} ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        os.chdir(prev_cwd)
+        tempfile.tempdir = prev_tmp
+
+    phase_s = time.perf_counter() - t_phase
+    log(f"[view] phase {phase_s:.1f} s")
+    report["view"] = dict(
+        cuts=VIEW_CUTS, nvidia_smi=smi, cli={k: v for k, v in cli.items() if k != "log"},
+        launches=launches, launches_main=launches_main, per_render=per_render,
+        timer=dict(timer.totals), render_ms=render_ms, peak_gib=peak_gib, profile=render_prof,
+        checks=checks, bitwise_sim=bitwise_sim, jpeg_equal=jpeg_equal, concurrent=concurrent_ok,
+        trace_ok=trace_ok, small=small, backends=backends, seconds=phase_s,
+        off_background=shown, path_frames=path_frames)
+    ok = (cli["ok"] and gate and bitwise_sim and jpeg_equal and concurrent_ok and checks_ok
+          and trace_ok and min(shown) >= 0.01
+          and small["frames_equal_count"] and small["pos_err"] <= 1e-5 and small["px_gap"] <= 1
+          and small["moved"] > 0 and backends["ok"])
+    if not ok:
+        log("[view] FAILED")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2093,6 +2597,10 @@ def main() -> int:
     ok_serve = ok_app and serve_phase(report, scenes)
     # 15. the registration and evaluation CLIs
     ok_regist = ok_serve and regist_phase(report, rec)
+    # 16. the viewer CLI
+    lora = sorted((REPO / "build" / "chip_smoke_app" / "logs" / "bb" / "finetune").glob(
+        "*_lora.npz"))[-1] if ok_app else None
+    ok_view = ok_regist and view_phase(report, REPO / "build" / "chip_smoke_serve", lora)
     report.update(kernels=rec, launches_train_headline=launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "build"
@@ -2101,7 +2609,7 @@ def main() -> int:
     if not ok:
         log("[train] FAILED")
         return 1
-    if not (ok_dense and ok_app and ok_serve and ok_regist):
+    if not (ok_dense and ok_app and ok_serve and ok_regist and ok_view):
         return 1
 
     sources = {
@@ -2122,6 +2630,7 @@ def main() -> int:
             "launches_render": report["serve"]["render"]["launches"].get(name, 0),
             "launches_inference": report["serve"]["inference"]["launches"].get(name, 0),
             "launches_regist": report["regist"]["launches"].get(name, 0),
+            "launches_view": report["view"]["launches"].get(name, 0),
             "check": "pass", "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

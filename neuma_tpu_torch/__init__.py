@@ -11,9 +11,10 @@ Ported so far: the grounding rollout (``train/grounding.py::make_rollout_loss``:
 elasticity MLP -> MPM step (slab branch through the P2G and G2P kernels,
 dense branch for small grids) -> plasticity MLP -> binding -> Particle-GS
 rasterizer (tile-composite kernels)), its BPTT backward, both trainers,
-and the training CLI ``apps/finetune.py`` with the config, data and
-checkpoint modules it reaches (``utils``, ``data``, ``sim/initializers.py``,
-``train/checkpoint.py``, ``parallel/distributed.py``).
+every CLI of ``apps/`` (training, rendering, inference, registration,
+evaluation, the viewer) with the modules they reach, and the alternative
+backends of ``p2g`` and of the rasterizer. Scale-out (``parallel/``
+beyond ``distributed.py``'s process setup) is not ported.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without an explicit CPU request they raise.

@@ -25,21 +25,30 @@
 //      below 1e-4 leaves the segment: it must stop there (T_front <= 1), and
 //      launch 3 walks that segment again.
 //   3. k4_combine (one CTA per tile, one thread per pixel): the tile's
-//      segments in order, carrying T. Where T P is at least 1e-4 (1 +
-//      1e-4), the segment is taken whole: C += T S, T *= P, `last` = its
-//      last contributing slot. Otherwise the pixel walks that segment again
+//      segments in order, carrying T. Where T P is at least 1e-4 (1 + m),
+//      the segment is taken whole: C += T S, T *= P, `last` = its last
+//      contributing slot. Otherwise the pixel walks that segment again
 //      from T with the sequential stop test and stops there if it fires
-//      (else it goes on). T is non-increasing along a walk, so the smallest
-//      test value of a segment is its end value; the product forms of it
-//      differ by <= ~130 roundings (< 1e-5 relative), inside the margin,
-//      so every stop decision is made by a sequential walk as in the plain
-//      version. Summaries are read four segments at a time. The walks
-//      again run in rounds: the CTA stages the earliest segment a pixel
-//      waits for in shared memory, and the pixels waiting for it walk it.
+//      (else it goes on). Summaries are read four segments at a time. The
+//      walks again run in rounds: the CTA stages the earliest segment a
+//      pixel waits for in shared memory, and the pixels waiting for it
+//      walk it.
 // T is then a product of segment products: another rounding of the same
 // function, as the TPU kernel's chunked prefix products are (abs 2e-5 on T
-// and C against the plain version, `last` equal). No atomics; every sum
-// runs in a fixed order, so the result repeats bit for bit.
+// and C against the plain version). The stop decisions are the plain
+// version's, `last` equal: two float products of the same n factors differ
+// by at most 2 n u relative (u = 2^-24; n counts the multiplies that formed
+// T, each summary carrying its own count beside its last slot), so the
+// margin m is the larger of 1e-4 and that bound (T is non-increasing along
+// a walk, so a segment taken whole holds no stop), and a pixel whose stop
+// test lies within the bound of 1e-4 is left for the plain version's own
+// walk, which the CTA runs at its end for such pixels from the tile's
+// first slot (their T, C and `last` are then the plain version's bits):
+// the guards of a staged segment are evaluated in parallel, and only the
+// multiply chain is serial. A deep view has a few such pixels; each tile's
+// count of them is written to the scratch's tail, for the work statistics.
+// No atomics; every sum runs in a fixed order, so the result repeats bit
+// for bit.
 //
 // Scratch: one buffer the wrapper allocates at the size
 // neuma_composite_fwd_scratch_words gives (layout below).
@@ -48,9 +57,19 @@
 namespace {
 
 constexpr float T_MIN = 1e-4f;
-constexpr float T_ACCEPT = 1e-4f * (1.f + 1e-4f);  // take a segment whole at or above
 constexpr int AHEAD = 4;  // summaries read per step of the combine
+constexpr int EXACT_GROUP = 4;  // pixels per group of the plain version's walk
 constexpr int NO_SEG = 0x7fffffff;
+
+// Relative gap bound of two float products of at most n factors each
+// (one rounding per multiply): 2 n u with u = 2^-24, and some slack.
+__device__ __forceinline__ float product_gap(int n) { return 1.2e-7f * (float)(n + 2); }
+
+// A segment's last contributing slot (-1 for none) and its number of
+// contributing slots (the multiplies in its product), in one int.
+__device__ __forceinline__ int pack_last(int sl, int nc) { return (sl + 1) | (nc << 8); }
+__device__ __forceinline__ int last_slot(int v) { return (v & 0xff) - 1; }
+__device__ __forceinline__ int factors(int v) { return v >> 8; }
 
 __global__ void __launch_bounds__(PIX, 4)
 k4_summaries(const float* __restrict__ feats, const int* __restrict__ tile_start,
@@ -69,7 +88,7 @@ k4_summaries(const float* __restrict__ feats, const int* __restrict__ tile_start
     load_rows(sf, sy, feats, tile_start[t] + lo, cnt);
     const float px = pixel_x(t, tiles_x, lane), py = pixel_y(t, tiles_x, lane);
     float P = 1.f, s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    int sl = -1;
+    int sl = -1, nc = 0;
     for (int j = 0; j < cnt; ++j) {
       const float* f = sf + j * NF;
       const float2 yb = sy[j];
@@ -81,11 +100,12 @@ k4_summaries(const float* __restrict__ feats, const int* __restrict__ tile_start
         s2 = __fadd_rn(s2, __fmul_rn(w, f[8]));
         P = __fmul_rn(P, __fsub_rn(1.f, alpha));
         sl = j;
+        ++nc;
         if (P < T_MIN) break;  // the pixel stops in this segment
       }
     }
     summ[(size_t)i * PIX + lane] = make_float4(P, s0, s1, s2);
-    slast[(size_t)i * PIX + lane] = sl;
+    slast[(size_t)i * PIX + lane] = pack_last(sl, nc);
   }
 }
 
@@ -93,13 +113,17 @@ __global__ void __launch_bounds__(PIX)
 k4_combine(const float* __restrict__ feats, const int* __restrict__ tile_start,
            const int* __restrict__ counts, const int* __restrict__ tile_first, int tiles_x,
            const float4* __restrict__ summ, const int* __restrict__ slast,
-           float* __restrict__ T_out, float* __restrict__ C_out, float* __restrict__ last_out) {
+           float* __restrict__ T_out, float* __restrict__ C_out, float* __restrict__ last_out,
+           int* __restrict__ exact_out) {
   __shared__ float sf[SEG * NF];
   __shared__ int wmin[WARPS];
+  __shared__ int exact_lane[PIX];
+  __shared__ float q_exact[EXACT_GROUP * SEG], a_exact[EXACT_GROUP * SEG];
   const int t = blockIdx.x;
   const int lane = threadIdx.x;
   const int n = counts[t];
   float T = 1.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, last = -1.f;
+  int n_exact = 0;  // the tile's pixels left for the plain version's walk
   if (n > 0) {  // the whole CTA
     const int start = tile_start[t];
     const int nseg = (n + SEG - 1) / SEG;
@@ -108,6 +132,8 @@ k4_combine(const float* __restrict__ feats, const int* __restrict__ tile_start,
     int k = 0;              // the pixel's next segment
     int again = NO_SEG;     // the segment it waits to walk again
     bool finished = false;  // stopped, or past its last segment
+    bool exact = false;     // left for the plain version's walk below
+    int nf = 0;             // multiplies that formed T
     while (true) {
       // Take whole segments until one must be walked again.
       while (!finished && again == NO_SEG) {
@@ -124,12 +150,14 @@ k4_combine(const float* __restrict__ feats, const int* __restrict__ tile_start,
         for (int u = 0; u < AHEAD; ++u) {
           if (again == NO_SEG && k + u < nseg) {
             const float Tn = __fmul_rn(T, s[u].x);
-            if (Tn >= T_ACCEPT) {
+            const int nf_after = nf + factors(sl[u]) + 1;
+            if (Tn >= T_MIN * (1.f + fmaxf(1e-4f, product_gap(nf_after)))) {
               c0 = __fadd_rn(c0, __fmul_rn(T, s[u].y));
               c1 = __fadd_rn(c1, __fmul_rn(T, s[u].z));
               c2 = __fadd_rn(c2, __fmul_rn(T, s[u].w));
               T = Tn;
-              if (sl[u] >= 0) last = (float)(start + (k + u) * SEG + sl[u]);
+              nf = nf_after;
+              if (last_slot(sl[u]) >= 0) last = (float)(start + (k + u) * SEG + last_slot(sl[u]));
             } else {
               again = k + u;
             }
@@ -160,6 +188,11 @@ k4_combine(const float* __restrict__ feats, const int* __restrict__ tile_start,
           float dx, dy, G, alpha;
           if (!visit(f, px, py, dx, dy, G, alpha)) continue;
           const float test_T = __fmul_rn(T, __fsub_rn(1.f, alpha));
+          if (fabsf(__fsub_rn(test_T, T_MIN)) <= T_MIN * product_gap(nf + 1)) {
+            exact = true;  // within rounding of 1e-4: the plain version's walk decides
+            stopped = true;
+            break;
+          }
           if (test_T < T_MIN) {
             stopped = true;
             break;
@@ -169,6 +202,7 @@ k4_combine(const float* __restrict__ feats, const int* __restrict__ tile_start,
           c1 = __fadd_rn(c1, __fmul_rn(w, f[7]));
           c2 = __fadd_rn(c2, __fmul_rn(w, f[8]));
           T = test_T;
+          ++nf;
           last = (float)(start + lo + j);
         }
         again = NO_SEG;
@@ -177,26 +211,86 @@ k4_combine(const float* __restrict__ feats, const int* __restrict__ tile_start,
       }
       __syncthreads();  // sf and wmin are rewritten in the next round
     }
+    // The pixels left for it walk the tile as the plain version does, from
+    // its first slot with T = 1, EXACT_GROUP pixels at a time: per staged
+    // segment the CTA evaluates their guards for every slot in parallel,
+    // then each pixel's own thread runs the multiply chain over them.
+    if (__syncthreads_or(exact)) {
+      if (exact) {
+        T = 1.f;
+        c0 = c1 = c2 = 0.f;
+        last = -1.f;
+      }
+      const unsigned ballot = __ballot_sync(FULL, exact);
+      if ((lane & 31) == 0) wmin[lane >> 5] = __popc(ballot);
+      __syncthreads();
+      int rank = __popc(ballot & ((1u << (lane & 31)) - 1u));
+      for (int w = 0; w < WARPS; ++w) {
+        rank += w < (lane >> 5) ? wmin[w] : 0;
+        n_exact += wmin[w];
+      }
+      if (exact) exact_lane[rank] = lane;
+      __syncthreads();
+      for (int g0 = 0; g0 < n_exact; g0 += EXACT_GROUP) {
+        const int ng = min(EXACT_GROUP, n_exact - g0);
+        const int mine = exact && rank >= g0 && rank < g0 + ng ? rank - g0 : -1;
+        bool done = mine < 0;
+        for (int lo = 0; lo < n && __syncthreads_or(!done); lo += SEG) {
+          const int cnt = min(n - lo, SEG);
+          const float* src = feats + (size_t)(start + lo) * NF;
+          for (int i = lane; i < cnt * NF; i += PIX) sf[i] = src[i];
+          __syncthreads();
+          for (int i = lane; i < ng * cnt; i += PIX) {
+            const int e = exact_lane[g0 + i / cnt], j = i % cnt;
+            float dx, dy, G, alpha;
+            const bool v = visit(sf + j * NF, pixel_x(t, tiles_x, e), pixel_y(t, tiles_x, e), dx,
+                                 dy, G, alpha);
+            q_exact[(i / cnt) * SEG + j] = v ? __fsub_rn(1.f, alpha) : -1.f;  // -1: skipped
+            a_exact[(i / cnt) * SEG + j] = alpha;
+          }
+          __syncthreads();
+          for (int j = 0; j < cnt && !done; ++j) {
+            const float q = q_exact[mine * SEG + j];
+            if (q < 0.f) continue;
+            const float test_T = __fmul_rn(T, q);
+            if (test_T < T_MIN) {
+              done = true;
+              break;
+            }
+            const float* f = sf + j * NF;
+            const float w = __fmul_rn(a_exact[mine * SEG + j], T);
+            c0 = __fadd_rn(c0, __fmul_rn(w, f[6]));
+            c1 = __fadd_rn(c1, __fmul_rn(w, f[7]));
+            c2 = __fadd_rn(c2, __fmul_rn(w, f[8]));
+            T = test_T;
+            last = (float)(start + lo + j);
+          }
+          __syncthreads();  // sf and the guard values are rewritten in the next round
+        }
+      }
+    }
   }
   T_out[(size_t)t * PIX + lane] = T;
   C_out[(size_t)t * 3 * PIX + lane] = c0;
   C_out[(size_t)t * 3 * PIX + PIX + lane] = c1;
   C_out[(size_t)t * 3 * PIX + 2 * PIX + lane] = c2;
   last_out[(size_t)t * PIX + lane] = last;
+  if (lane == 0) exact_out[t] = n_exact;
 }
 
 // Scratch layout in 4-byte words: int4 work[items] (t, segment, first item
 // of t, segments of t) | int item count | int tile_first[num_tiles] |
 // float4 summaries[items * 256], 16-byte aligned | int last slot[items *
-// 256]; items = items_bound(P, num_tiles).
+// 256] | int exact-walk pixels[num_tiles]; items = items_bound(P, num_tiles).
 struct Layout {
-  size_t items, summ, slast, words;
+  size_t items, summ, slast, exact, words;
 };
 Layout layout(int P, int num_tiles) {
   const size_t items = items_bound(P, num_tiles);
   const size_t summ = (4 * items + 1 + num_tiles + 3) & ~(size_t)3;
   const size_t slast = summ + 4 * items * PIX;
-  return {items, summ, slast, slast + items * PIX};
+  const size_t exact = slast + items * PIX;
+  return {items, summ, slast, exact, exact + num_tiles};
 }
 
 }  // namespace
@@ -235,6 +329,6 @@ extern "C" int neuma_composite_fwd(const void* feats, const void* tile_start, co
   if (err != cudaSuccess) return (int)err;
   k4_combine<<<num_tiles, PIX, 0, s>>>(f, ts, cn, tile_first, tiles_x, summ, slast,
                                        static_cast<float*>(T), static_cast<float*>(C),
-                                       static_cast<float*>(last));
+                                       static_cast<float*>(last), ints + lay.exact);
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,10 @@ is imported here. Converted:
   ``ComposeMaterial`` from a list of trees (``compose_from_numpy``). The
   class is named as in the JAX package (both packages use the same
   names) and built from its config mapping (a meta family also takes the
-  JAX package's ``MetaMaterialConfig`` dataclass).
+  JAX package's ``MetaMaterialConfig`` dataclass);
+* the viewer's ``SceneObject`` (``scene_object_from_numpy``): its
+  Gaussians, binding, ``MPMInitData`` (``init_data_from_numpy``), panel
+  fields, and both materials built from ``params_e`` / ``params_p``.
 
 ``to_numpy`` maps any of the port's trees back to numpy (bit-exact).
 
@@ -46,7 +49,9 @@ from .render.binding import BindingTable
 from .render.camera import Camera
 from .render.gaussians import GaussianPack
 from .train.lpips import LPIPSParams
+from .sim.initializers import MPMInitData
 from .train.optim import RAdamState
+from .vis.instance import SceneObject
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -175,4 +180,45 @@ def compose_from_numpy(specs, params_list, sections, device="cpu"):
     package's list of trees ``params_list``."""
     return materials.ComposeMaterial(
         [material_from_numpy(n, c, p, device) for (n, c), p in zip(specs, params_list)], sections
+    )
+
+
+def init_data_from_numpy(d) -> MPMInitData:
+    """The JAX package's ``MPMInitData`` (copied field by field)."""
+    opt = lambda a: None if a is None else np.array(a, copy=True)
+    return MPMInitData(
+        rho=float(d.rho), clip_bound=float(d.clip_bound), span=tuple(d.span),
+        num_particles=int(d.num_particles), vol=float(d.vol), pos=np.array(d.pos, copy=True),
+        lin_vel=np.array(d.lin_vel, copy=True), ang_vel=np.array(d.ang_vel, copy=True),
+        center=opt(d.center), ind_vel=opt(d.ind_vel), size=opt(d.size),
+    )
+
+
+def _material_spec(material):
+    """(class name, config) of a JAX material: a meta family's ``cfg``, or
+    a preset's attributes (``E``, ``nu``, ...)."""
+    cfg = getattr(material, "cfg", None)
+    return type(material).__name__, (cfg if cfg is not None else dict(vars(material)))
+
+
+def scene_object_from_numpy(obj, device="cpu") -> SceneObject:
+    """The port's ``SceneObject`` from a JAX ``vis/instance.py::SceneObject``:
+    each material is the port's same-named class with the object's
+    ``params_e`` / ``params_p`` tree (its own module)."""
+    (e_name, e_cfg), (p_name, p_cfg) = _material_spec(obj.elasticity), _material_spec(obj.plasticity)
+    to_np = lambda tree: {k: to_np(v) for k, v in tree.items()} if isinstance(tree, dict) else (
+        [to_np(v) for v in tree] if isinstance(tree, (list, tuple)) else np.asarray(tree))
+    return SceneObject(
+        name=obj.name,
+        gaussians=gaussians_from_numpy(obj.gaussians, device),
+        binding=binding_from_numpy(obj.binding, device),
+        elasticity=material_from_numpy(e_name, e_cfg, to_np(obj.params_e), device),
+        plasticity=material_from_numpy(p_name, p_cfg, to_np(obj.params_p), device),
+        init_data=init_data_from_numpy(obj.init_data),
+        enabled=bool(obj.enabled),
+        scaling_modifier=float(obj.scaling_modifier),
+        drop_vel=float(obj.drop_vel),
+        lora_weight=float(obj.lora_weight),
+        adaptor=obj.adaptor,
+        up_axis=int(obj.up_axis),
     )

@@ -99,9 +99,14 @@ def composite_fwd_plain(pair_feats, tile_start, tile_counts, tiles_x: int):
     return T, torch.cat(C, dim=1), last
 
 
-def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int):
-    """K4: returns (T, C, last). Plain version on CPU tensors."""
+def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int, with_exact: bool = False):
+    """K4: returns (T, C, last). Plain version on CPU tensors. With
+    ``with_exact`` (CUDA tensors only) a fourth item: each tile's count
+    (T,) int32 of pixels whose stop test fell within rounding of 1e-4 and
+    that the kernel therefore walked as the plain version does."""
     if not pair_feats.is_cuda:
+        if with_exact:
+            raise ValueError("with_exact counts K4's own walks; CPU tensors run its plain version")
         return composite_fwd_plain(pair_feats, tile_start, tile_counts, tiles_x)
     P = pair_feats.shape[0]
     num_tiles = tile_counts.shape[0]
@@ -126,6 +131,8 @@ def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int):
     )
     kernels.check(rc, "neuma_composite_fwd")
     kernels.launches["composite"] += 1
+    if with_exact:  # the scratch's tail (the kernel's layout note)
+        return T, C, last, scratch[words - num_tiles:].clone()
     return T, C, last
 
 

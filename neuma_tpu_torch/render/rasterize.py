@@ -17,6 +17,15 @@ where each Gaussian's pairs form one contiguous run, each run is summed
 by a segmented doubling in a fixed order, and the depth sort is undone
 by a gather. No atomics, so the gradient repeats bit for bit on the card.
 
+``RasterConfig.backend`` says where the composite runs: ``"auto"`` runs
+K4/K5 on CUDA tensors and their plain versions on CPU tensors;
+``"pallas"`` asks for the kernels and raises on CPU tensors;
+``"pallas_interpret"`` asks for the plain versions (the JAX package's
+interpreter for debugging its kernels) and raises on CUDA tensors. The
+JAX package's ``"jnp"`` backend, its ``pair_grad`` and ``pair_binning``
+strategies and ``segment`` are not ported: the kernel path is the one
+composite, with the one binning and the one transpose above.
+
 Every ``argsort``/``sort`` passes ``stable=True``: ties (invisible
 Gaussians at +inf depth, equal tile ids) must keep index order, or
 ``last`` and the image change.
@@ -33,16 +42,18 @@ from .camera import Camera
 from .raster_kernel import CHUNK, PIX, composite_pairs
 
 TILE = 16
+BACKENDS = ("auto", "pallas", "pallas_interpret")
 
 
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:
-    """Static rasterization bounds (per scene)."""
+    """Static rasterization bounds and backend choice (per scene)."""
 
     max_pairs: int = 262144  # total (gaussian, tile) pairs after culling
     # The JAX package's jnp-backend depth bound; scene configs carry it,
     # the kernel path walks each tile's true count and never reads it.
     max_per_tile: int = 1024
+    backend: str = "auto"  # 'auto' | 'pallas' | 'pallas_interpret' (module docstring)
 
     def __post_init__(self):
         if not self.max_pairs < (1 << 24):
@@ -50,6 +61,8 @@ class RasterConfig:
                 f"max_pairs ({self.max_pairs}) must stay below 2^24: pair "
                 "placement relies on exact f32 integer arithmetic in the reference"
             )
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend: {self.backend!r}")
 
 
 def _project(means3d: torch.Tensor, cov3d: torch.Tensor, camera: Camera):
@@ -277,6 +290,12 @@ def rasterize_with_aux(
 ) -> Tuple[torch.Tensor, dict]:
     """Render a (3, H, W) image; ``aux["overflow"]`` is a device bool
     that fires when pairs past ``max_pairs`` were dropped."""
+    if cfg.backend != "auto" and means3d.is_cuda != (cfg.backend == "pallas"):
+        want = "CUDA" if cfg.backend == "pallas" else "CPU"
+        raise RuntimeError(
+            f"RasterConfig(backend={cfg.backend!r}) needs {want} tensors: 'pallas' runs the "
+            "CUDA kernels K4/K5, 'pallas_interpret' their plain versions, 'auto' picks by device"
+        )
     opacity = opacity.reshape(-1)
     depth, visible, mean2d, conic, radius = _project(means3d, cov3d, camera)
     if colors_precomp is not None:

@@ -2,11 +2,20 @@
 
 Counterpart of ``neuma_tpu/sim/mpm.py``: ``_p2g_terms``, ``grid_op``
 and ``grid_op_slabs`` (``noslip`` and ``freeslip``), ``g2p_core``,
-``_g2p_tail``, the public ``p2g`` (``method="auto"``), ``g2p`` and
-``advect_extra`` on the dense grid's tensors, ``_step_sort``, the step
-on either branch (``_step_fwd``, the direct adjoint ``_step_bwd``),
-``mpm_step``, ``mpm_step_diff``, ``make_packed_substep`` and
-``scrub_cotangents``.
+``_g2p_tail``, the public ``p2g`` (every ``method``: ``"auto"`` /
+``"blocked"``, ``"matmul"`` and ``"scatter"``) with ``p2g_scatter``,
+``_axis_weights`` and ``p2g_matmul``, ``g2p`` and ``advect_extra`` on
+the dense grid's tensors, ``_step_sort``, the step on either branch
+(``_step_fwd``, the direct adjoint ``_step_bwd``), ``mpm_step``,
+``mpm_step_diff``, ``make_packed_substep`` and ``scrub_cotangents``.
+
+``p2g_scatter`` and ``p2g_matmul`` are the JAX package's code outside
+any Pallas kernel, in their plain PyTorch form, differentiated by
+autograd as the JAX versions are by AD: the scatter is the ordered sum
+of ``sim/blocked.py`` (no ``index_add_``, so it repeats bit for bit on
+the card), the separable products are ``torch.matmul`` in full FP32
+(TF32 off around each product and its backward, where the JAX code asks
+for ``Precision.HIGHEST``). Neither runs on the default path.
 
 Grids of more than 24 cells take the slab branch on any device: the grid
 lives as halo-complete per-block slabs from the P2G kernel (K1) through
@@ -32,7 +41,8 @@ across the rollout).
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import contextlib
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -42,9 +52,11 @@ from .blocked import (
     _apic_bwd_dual_impl,
     _dense_forward,
     _layouts,
+    _ordered_scatter,
     _scatter_backward,
-    _slab_grid,
     _scatter_forward,
+    _slab_grid,
+    _spline,
     _tap_geometry,
     apic_scatter,
 )
@@ -224,6 +236,164 @@ def g2p(
     return _g2p_tail(constants, statics, state, new_v, new_C)
 
 
+def p2g_scatter(constants: MPMConstants, statics: Statics, state: ParticleState,
+                stress: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Particle-to-grid as a scatter of the 27 taps (reference
+    mpm.py:321-371): (grid_m (G^3,), grid_mv (G^3, 3)). Each cell's taps
+    are summed by ``_ordered_scatter`` in one fixed order."""
+    g3 = constants.num_grids ** 3
+    mass = statics.vol * statics.rho
+    enabled = statics.enabled.to(state.x.dtype)
+    flat, weight, _, dpos = _tap_geometry(constants, state.x)
+    stress_term = (
+        -constants.dt * statics.vol * 4.0 * constants.inv_dx * constants.inv_dx
+    )[:, None, None] * stress
+    affine = stress_term + mass[:, None, None] * state.C
+    # mv contribution: weight * (mass * v + affine @ dpos), per tap.
+    mv_tap = mass[:, None, None] * state.v[:, None, :] + torch.einsum("nij,noj->noi", affine, dpos)
+    weight = weight * enabled[:, None]
+    vals = torch.cat([weight[..., None] * mv_tap, (weight * mass[:, None])[..., None]], dim=-1)
+    grid = _ordered_scatter(flat.reshape(-1), vals.reshape(-1, 4), g3)
+    return grid[:, 3], grid[:, :3]
+
+
+def _axis_weights(constants: MPMConstants, x: torch.Tensor,
+                  region: Optional[Tuple[Tuple[int, int], ...]] = None):
+    """Per-axis dense quadratic B-spline weight matrices.
+
+    Returns (W, Wi, base, fx): W and Wi are lists of 3 tensors (N, S_a)
+    each. W[a][p, c] is the axis-a spline weight of particle p at LOCAL
+    grid line c, and Wi[a] the same weighted by the LOCAL tap offset i in
+    {0, 1, 2} (the affine term's offset dependence).
+
+    ``region``: optional per-axis (lo, size) restricting the dense
+    coordinate range to global lines [lo, lo+size), the slab view of the
+    halo-exchange step, where each shard holds only its slab and halo.
+    Taps whose (clamped) cell falls outside the region are dropped; the
+    caller sizes the region to cover the taps of the particles it passes.
+    """
+    g = constants.num_grids
+    p_x = x * constants.inv_dx
+    base = torch.floor(p_x - 0.5).to(torch.int64)
+    fx = p_x - base.to(x.dtype)
+    w, _ = _spline(fx)  # (N, 3 axes, 3 taps)
+    if region is None:
+        region = ((0, g),) * 3
+    W, Wi = [], []
+    for a in range(3):
+        lo, size = region[a]
+        coords = lo + torch.arange(size, device=x.device)
+        # Taps off the grid fold onto the edge line, the index clamp of
+        # the scatter path; dpos keeps the unclamped local offset.
+        Wa = torch.zeros((x.shape[0], size), dtype=x.dtype, device=x.device)
+        Wia = torch.zeros_like(Wa)
+        for i in range(3):
+            ci = torch.clamp(base[:, a : a + 1] + i, 0, g - 1)
+            tap = (coords[None, :] == ci).to(x.dtype)
+            Wa = Wa + w[:, a, i : i + 1] * tap
+            if i:
+                Wia = Wia + float(i) * w[:, a, i : i + 1] * tap
+        W.append(Wa)
+        Wi.append(Wia)
+    return W, Wi, base, fx
+
+
+@contextlib.contextmanager
+def _fp32_matmul():
+    """cuBLAS without TF32 (the JAX code's ``Precision.HIGHEST``); the
+    global flag is restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _ExactMatmul(torch.autograd.Function):
+    """``a @ b`` whose forward and backward products both run in full
+    FP32: autograd runs a backward after any ``with`` block around the
+    forward has closed, so the backward sets the flag itself."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _fp32_matmul():
+            return torch.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        with _fp32_matmul():
+            da = torch.matmul(g, b.T) if ctx.needs_input_grad[0] else None
+            db = torch.matmul(a.T, g) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def p2g_matmul(constants: MPMConstants, statics: Statics, state: ParticleState,
+               stress: torch.Tensor, chunk: int = 16384,
+               region: Optional[Tuple[Tuple[int, int], ...]] = None):
+    """Particle-to-grid as separable matmuls over the dense grid (or the
+    ``region`` slab view): (grid_m (S^3,), grid_mv (S^3, 3)).
+
+    The 27-tap APIC scatter factorizes: with local tap offsets (i, j, k),
+        mv_tap = wx_i wy_j wz_k * (b + i*a0 + j*a1 + k*a2)
+    where b = mass*v - (A @ fx) * dx and a_c = A[:, c] * dx. The grid is
+    a sum of four tensor-product terms, each a (Sx, N) @ (N, Sy Sz)
+    product against the per-particle (Wy x Wz) outer products, summed
+    over particle chunks of ``chunk``: no scatter forward or backward.
+    """
+    g = constants.num_grids
+    if region is None:
+        region = ((0, g),) * 3
+    (_, sx), (_, sy), (_, sz) = region
+    dtype = state.x.dtype
+    n = state.x.shape[0]
+    en = statics.enabled.to(dtype)
+    mass = statics.vol * statics.rho * en
+    stress_term = (
+        -constants.dt * statics.vol * 4.0 * constants.inv_dx * constants.inv_dx
+    )[:, None, None] * stress
+    affine = stress_term + mass[:, None, None] * state.C
+
+    W, Wi, _, fx = _axis_weights(constants, state.x, region)
+    Wx, Wy, Wz = W
+    Wix, Wiy, Wiz = Wi
+    # Zero disabled particles through the x-axis weights.
+    Wx = Wx * en[:, None]
+    Wix = Wix * en[:, None]
+    dx = constants.dx
+    b_vec = mass[:, None] * state.v - torch.einsum("nij,nj->ni", affine, fx) * dx
+    a_cols = affine * dx  # a_c = affine[:, :, c] * dx
+    mm = _ExactMatmul.apply
+
+    def accumulate(lo, hi):
+        wx, wy, wz = Wx[lo:hi], Wy[lo:hi], Wz[lo:hi]
+        wix, wiy, wiz = Wix[lo:hi], Wiy[lo:hi], Wiz[lo:hi]
+        m_ = hi - lo
+        yz = (wy[:, :, None] * wz[:, None, :]).reshape(m_, sy * sz)
+        yz_i = (wiy[:, :, None] * wz[:, None, :]).reshape(m_, sy * sz)
+        yz_k = (wy[:, :, None] * wiz[:, None, :]).reshape(m_, sy * sz)
+        b, a, m = b_vec[lo:hi], a_cols[lo:hi], mass[lo:hi]
+        grid_m = mm(wx.T, yz * m[:, None])  # (Sx, Sy*Sz)
+        mv = []
+        for r in range(3):
+            lhs = yz * b[:, r : r + 1] + yz_i * a[:, r, 1][:, None] + yz_k * a[:, r, 2][:, None]
+            mv.append(mm(wx.T, lhs) + mm(wix.T, yz * a[:, r, 0][:, None]))
+        return grid_m, torch.stack(mv, dim=-1)
+
+    if n <= chunk:
+        grid_m, grid_mv = accumulate(0, n)
+    else:
+        grid_m = torch.zeros((sx, sy * sz), dtype=dtype, device=state.x.device)
+        grid_mv = torch.zeros((sx, sy * sz, 3), dtype=dtype, device=state.x.device)
+        for start in range(0, n, chunk):
+            dm, dmv = accumulate(start, min(start + chunk, n))
+            grid_m = grid_m + dm
+            grid_mv = grid_mv + dmv
+    return grid_m.reshape(sx * sy * sz), grid_mv.reshape(sx * sy * sz, 3)
+
+
 def p2g(
     constants: MPMConstants,
     statics: Statics,
@@ -232,18 +402,25 @@ def p2g(
     method: str = "auto",
     sort=None,
 ):
-    """Particle-to-grid scatter, (grid_m (G^3,), grid_mv (G^3, 3)):
-    ``apic_scatter`` of the step's channels (K1 on slab grids, the
-    ordered dense scatter otherwise), differentiable through its
-    tap-space adjoint. ``method`` 'auto' and 'blocked' are this path."""
+    """Particle-to-grid scatter, (grid_m (G^3,), grid_mv (G^3, 3)).
+    ``method``:
+
+    * 'auto' / 'blocked': ``apic_scatter`` of the step's channels (K1 on
+      slab grids, the ordered dense scatter otherwise), differentiable
+      through its tap-space adjoint; ``sort`` may carry the step's
+      layouts.
+    * 'matmul': ``p2g_matmul`` over the full grid, chunked so each
+      (chunk, G^2) intermediate stays near 2^25 elements.
+    * 'scatter': ``p2g_scatter``.
+    """
     if method in ("auto", "blocked"):
         mass, b, affine = _p2g_terms(constants, statics, state, stress)
         return apic_scatter(constants, state.x, mass, b, affine, sort)
-    if method in ("matmul", "scatter"):
-        raise NotImplementedError(
-            f"p2g(method={method!r}) is not ported yet (ROADMAP.md, queue 1, item 5: "
-            "the alternative backends); use method='auto'"
-        )
+    if method == "matmul":
+        chunk = max(2048, (1 << 25) // constants.num_grids ** 2)
+        return p2g_matmul(constants, statics, state, stress, chunk=chunk)
+    if method == "scatter":
+        return p2g_scatter(constants, statics, state, stress)
     raise ValueError(f"unknown p2g method: {method!r}")
 
 

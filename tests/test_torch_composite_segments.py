@@ -7,10 +7,16 @@ per (segment, pixel), the product ``P`` of ``1 - alpha`` over the
 segment's contributing slots, the colour sums ``S_c = sum alpha T_local
 rgb_c`` and the last contributing slot; a pixel leaves a segment once
 ``P < 1e-4``. Launch B takes each pixel's segments in order, carrying
-``T``: a segment with ``T P >= 1e-4 (1 + 1e-4)`` is taken whole (``C +=
-T S``, ``T *= P``), any other is walked again from ``T`` with the
-sequential stop test. ``_segmented_fwd`` below is that algorithm written
-in torch. Bound: K4's abs 2e-5 on T and C, ``last`` equal.
+``T`` and the count ``n`` of multiplies that formed it: a segment with
+``T P >= 1e-4 (1 + m)``, ``m = max(1e-4, 2 n u)`` (u = 2^-24, the gap of
+two float products of ``n`` factors), is taken whole (``C += T S``, ``T
+*= P``), any other is walked again from ``T`` with the sequential stop
+test. A pixel whose stop test lands within ``1e-4 * 2 n u`` of 1e-4 is
+left for the plain version's own walk of the whole tile (its decision
+could differ from the product form's). ``_segmented_fwd`` below is that
+algorithm written in torch, and ``_planted_frame`` a frame that lands
+240 pixels of a tile in that band. Bound: K4's abs 2e-5 on T and C,
+``last`` equal.
 
 K5 cuts each tile's back-to-front walk into segments of ``seg``
 slots that run in parallel. Phase A gives, per (segment, pixel), the
@@ -33,8 +39,15 @@ from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 K4_TOL = 2e-5
 K5_TOL = 1e-5
+PLANTED_SEED = 9
+SEG = 64  # K4's segment length (csrc/composite_common.cuh)
 T_MIN = torch.tensor(1e-4, dtype=torch.float32)
-T_ACCEPT = T_MIN * torch.tensor(1.0 + 1e-4, dtype=torch.float32)
+T_ACCEPT = T_MIN * torch.tensor(1.0 + 1e-4, dtype=torch.float32)  # the rule before the band
+
+
+def _product_gap(n):
+    """K4's ``product_gap``: 2 n u with slack, in float32."""
+    return torch.tensor(1.2e-7, dtype=torch.float32) * (n + 2).float()
 
 
 def _pixels(nt, tiles_x):
@@ -55,8 +68,10 @@ def _guard(pf, idx, px, py):
     return (power <= 0.0) & (alpha >= 1.0 / 255.0), alpha, f
 
 
-def _segmented_fwd(pf, tile_start, counts, tiles_x, seg):
-    """K4's launches A and B for every (tile, segment) at once."""
+def _segmented_fwd(pf, tile_start, counts, tiles_x, seg, band=True):
+    """K4's launches A and B for every (tile, segment) at once. Returns
+    (T, C, last, each tile's pixels left for the plain walk); ``band=False``
+    is the rule before the band (margin 1e-4, no plain walk)."""
     nt = counts.shape[0]
     px, py = _pixels(nt, tiles_x)
     starts, cnt = tile_start[:-1].long(), counts.long()
@@ -67,6 +82,7 @@ def _segmented_fwd(pf, tile_start, counts, tiles_x, seg):
     P = torch.ones((nt, n_seg, rk.PIX))
     S = torch.zeros((nt, n_seg, 3, rk.PIX))
     sl = torch.full((nt, n_seg, rk.PIX), -1, dtype=torch.int64)
+    nc = torch.zeros((nt, n_seg, rk.PIX), dtype=torch.int64)
     left = torch.zeros((nt, n_seg, rk.PIX), dtype=torch.bool)
     for j in range(seg):
         loc = torch.arange(n_seg) * seg + j
@@ -76,6 +92,7 @@ def _segmented_fwd(pf, tile_start, counts, tiles_x, seg):
         S = torch.where(c[:, :, None], S + w[:, :, None] * f[..., 6:9, None], S)
         P = torch.where(c, P * (1.0 - alpha), P)
         sl = torch.where(c, j, sl)
+        nc = nc + c.long()
         left = left | (c & (P < T_MIN))
 
     # Launch B: each pixel's segments in order.
@@ -83,12 +100,17 @@ def _segmented_fwd(pf, tile_start, counts, tiles_x, seg):
     C = torch.zeros((nt, 3, rk.PIX))
     last = torch.full((nt, rk.PIX), -1.0)
     done = torch.zeros((nt, rk.PIX), dtype=torch.bool)
+    exact = torch.zeros((nt, rk.PIX), dtype=torch.bool)
+    nf = torch.zeros((nt, rk.PIX), dtype=torch.int64)
     for s in range(n_seg):
         live = ~done & (s < nseg)[:, None]
         Tn = T * P[:, s]
-        whole = live & (Tn >= T_ACCEPT)
+        nf_after = nf + nc[:, s] + 1
+        margin = torch.clamp(_product_gap(nf_after), min=1e-4)
+        whole = live & (Tn >= (T_MIN * (1.0 + margin) if band else T_ACCEPT))
         C = torch.where(whole[:, None], C + T[:, None] * S[:, s], C)
         T = torch.where(whole, Tn, T)
+        nf = torch.where(whole, nf_after, nf)
         last = torch.where(whole & (sl[:, s] >= 0),
                            (starts[:, None] + s * seg + sl[:, s]).float(), last)
         again = live & ~whole
@@ -99,13 +121,21 @@ def _segmented_fwd(pf, tile_start, counts, tiles_x, seg):
             ok, alpha, f = _guard(pf, idx, px, py)
             visit = again & ~done & (j < cnt)[:, None] & ok
             test_T = T * (1.0 - alpha)
-            stop = visit & (test_T < T_MIN)
+            near = visit & band & ((test_T - T_MIN).abs() <= T_MIN * _product_gap(nf + 1))
+            exact = exact | near
+            stop = visit & (near | (test_T < T_MIN))
             c = visit & ~stop
             C = torch.where(c[:, None], C + (alpha * T)[:, None] * f[:, 6:9, None], C)
             T = torch.where(c, test_T, T)
+            nf = nf + c.long()
             last = torch.where(c, idx.float()[:, None], last)
             done = done | stop
-    return T, C.reshape(nt, 3 * rk.PIX), last
+    # The pixels left for it take the plain version's walk of the whole tile.
+    Tp, Cp, lp = rk.composite_fwd_plain(pf, tile_start, counts, tiles_x)
+    C = C.reshape(nt, 3 * rk.PIX)
+    T, last = torch.where(exact, Tp, T), torch.where(exact, lp, last)
+    C = torch.where(exact.repeat(1, 3), Cp, C)
+    return T, C, last, exact.sum(1)
 
 
 def _stop_slots(pf, tile_start, counts, last, tiles_x):
@@ -260,6 +290,53 @@ def _frame(seed=0):
     return (*args[:3], T, last, dT, dC, tiles_x)
 
 
+def _planted_frame(seed=PLANTED_SEED, n_uniform=150):
+    """Three tiles. In tiles 0 and 1, slot 0 is a pair that only pixel
+    column 3 sees (conic (40, 0, 0) centred on it: alpha 0.3 there, below
+    1/255 elsewhere), slots 1..``n_uniform`` are uniform pairs (conic 0:
+    alpha = opacity at every pixel, 0.03-0.07) and the next slot is
+    planted: its opacity takes the other 240 pixels' sequential stop test
+    to the largest value below 1e-4 that an opacity can give in tile 0
+    (they stop there) and to the smallest at or above in tile 1 (they
+    contribute, and stop at the opacity-0.5 slot behind); both lie within
+    1e-6 relative of 1e-4. Tile 2 is empty. Every alpha is an opacity
+    exactly, so the plain walk's values are known in float32. The seed
+    makes the product of 64-slot segment products round to the other
+    side of 1e-4 in both tiles (``test_planted_frame_needs_the_band``)."""
+    rng = np.random.default_rng(seed)
+    tiles_x, n = 3, n_uniform + 4
+    counts = np.array([n, n, 0])
+    aligned = (counts + rk.CHUNK - 1) // rk.CHUNK * rk.CHUNK
+    start = np.concatenate([[0], np.cumsum(aligned)])
+    pf = np.zeros((int(start[-1]) + rk.CHUNK, 9), np.float32)
+    one, t_min = np.float32(1.0), np.float32(1e-4)
+    up = lambda a: np.nextafter(a, np.float32(2.0))
+    down = lambda a: np.nextafter(a, np.float32(-1.0))
+    for t in range(2):
+        ops = (0.03 + 0.04 * rng.random(n_uniform)).astype(np.float32)
+        T = one
+        for a in ops:
+            T = np.float32(T * np.float32(one - a))
+        assert T > 2e-4
+        test = lambda a: np.float32(T * np.float32(one - a))  # noqa: B023 (this tile's T)
+        a = np.float32(1.0 - 1e-4 / float(T))
+        while test(a) < t_min:
+            a = down(a)
+        while test(a) >= t_min:
+            a = up(a)
+        a = a if t == 0 else down(a)  # below 1e-4 in tile 0, at or above in tile 1
+        assert abs(float(test(a)) - 1e-4) <= 1e-4 * 1e-6
+        s0 = int(start[t])
+        pf[s0] = [16 * t + 3, 8, 40, 0, 0, 0.3, 0, 0, 0]
+        pf[s0 + 1 : s0 + 1 + n_uniform, 0:2] = 16 * t + 16 * rng.random((n_uniform, 2))
+        pf[s0 + 1 : s0 + 1 + n_uniform, 5] = ops
+        pf[s0 + 1 + n_uniform, 5] = a
+        pf[s0 + 2 + n_uniform : s0 + n, 5] = 0.5
+        pf[s0 : s0 + n, 6:9] = rng.random((n, 3))
+    as_i32 = lambda x: torch.as_tensor(x, dtype=torch.int32)
+    return torch.as_tensor(pf), as_i32(start), as_i32(counts), tiles_x
+
+
 @pytest.fixture(scope="module")
 def frame():
     args = _frame()
@@ -289,10 +366,36 @@ def test_frame_stops_at_segment_edges(frame):
 @pytest.mark.parametrize("seg", [16, 64, 100, 1024])
 def test_forward_segment_algebra_matches_plain(frame, seg):
     (pf, start, counts, *_), _ = frame
-    T, C, last = _segmented_fwd(pf, start, counts, 3, seg)
+    T, C, last, _ = _segmented_fwd(pf, start, counts, 3, seg)
     Tp, Cp, lp = rk.composite_fwd_plain(pf, start, counts, 3)
     assert float((T - Tp).abs().max()) <= K4_TOL and float((C - Cp).abs().max()) <= K4_TOL
     assert torch.equal(last, lp)
+
+
+def test_planted_frame_needs_the_band():
+    """In the planted frame the plain walk stops the 240 band pixels at the
+    planted slot in tile 0 and one slot behind it in tile 1, and the rule
+    before the band (margin 1e-4, every stop decided on the product form)
+    gets ``last`` wrong on all 480 of them."""
+    pf, start, counts, tiles_x = _planted_frame()
+    _, _, lp = rk.composite_fwd_plain(pf, start, counts, tiles_x)
+    band = torch.arange(rk.PIX) % rk.TILE != 3
+    for t, want in ((0, 150), (1, 151)):
+        assert bool((lp[t, band] == float(start[t]) + want).all()), t
+    _, _, last, _ = _segmented_fwd(pf, start, counts, tiles_x, SEG, band=False)
+    assert (last != lp).sum(1).tolist() == [240, 240, 0]
+
+
+@pytest.mark.parametrize("seg", [16, SEG])
+def test_forward_band_pixels_take_the_plain_walk(seg):
+    """With the band, exactly the 240 planted pixels of tiles 0 and 1 take
+    the plain walk, and the frame matches the plain version."""
+    pf, start, counts, tiles_x = _planted_frame()
+    T, C, last, exact = _segmented_fwd(pf, start, counts, tiles_x, seg)
+    Tp, Cp, lp = rk.composite_fwd_plain(pf, start, counts, tiles_x)
+    assert exact.tolist() == [240, 240, 0]
+    assert torch.equal(last, lp)
+    assert float((T - Tp).abs().max()) <= K4_TOL and float((C - Cp).abs().max()) <= K4_TOL
 
 
 @pytest.mark.parametrize("seg", [16, 64, 100, 1024])

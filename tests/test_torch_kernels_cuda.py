@@ -11,7 +11,9 @@ Bounds: K1, K2 and K3 at a scaled 1e-5 (both sides full FP32; K3 per
 output group); K4 at atol 2e-5 on T and C with ``last`` equal; K5 at a
 scaled 1e-5 per column (the kernel starts each segment of a walk from
 per-segment summaries and takes one reciprocal per visit, and sums the
-256 pixels in another order). K1, K3, K4 and K5 also run twice on the
+256 pixels in another order). On a planted frame whose stop tests land
+within rounding of 1e-4, K4 counts those pixels as taking the plain
+walk and matches the plain version bit for bit there. K1, K3, K4 and K5 also run twice on the
 same inputs and must agree bit for bit, and so do K2 and the dense-grid
 MPM step (plain PyTorch on the card, ``num_grids <= 24``), which is held
 to the same code on the CPU at a scaled 1e-5 forward and 1e-4 backward
@@ -38,6 +40,7 @@ from neuma_tpu_torch.core.types import MPMConstants, ParticleState, Statics
 from neuma_tpu_torch.render import raster_kernel as rk
 from neuma_tpu_torch.sim import p2g_kernel as pk
 from neuma_tpu_torch.sim.mpm import _p2g_terms, mpm_step_diff
+from test_torch_composite_segments import _planted_frame
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -283,6 +286,27 @@ def test_composite_kernel_skewed_frame(cuda):
     assert torch.equal(lk, lp)
     for a, b in zip((Tk, Ck, lk), rk.composite_fwd(*args)):
         assert torch.equal(a, b)  # bitwise repeatable
+
+
+@pytest.mark.cuda
+def test_composite_kernel_band_pixels_match_plain_bitwise(cuda):
+    """K4 on the planted frame of ``tests/test_torch_composite_segments.py``:
+    the 240 pixels per tile whose stop test lands within rounding of 1e-4
+    (where the product form and the sequential walk can decide apart)
+    are counted as taking the plain version's walk, and their T, C and
+    ``last`` equal the plain version's bit for bit; ``last`` equal
+    everywhere, T and C within K4's bound."""
+    pf, start, counts, tiles_x = _planted_frame()
+    args = (pf.to(cuda), start.to(cuda), counts.to(cuda), tiles_x)
+    T, C, last, exact = rk.composite_fwd(*args, with_exact=True)
+    Tp, Cp, lp = rk.composite_fwd_plain(*args)
+    assert exact.tolist() == [240, 240, 0]
+    assert torch.equal(last, lp)
+    band = torch.arange(rk.PIX, device=cuda) % rk.TILE != 3
+    for t in (0, 1):
+        assert torch.equal(T[t, band], Tp[t, band])
+        assert torch.equal(C[t].reshape(3, rk.PIX)[:, band], Cp[t].reshape(3, rk.PIX)[:, band])
+    assert float((T - Tp).abs().max()) <= 2e-5 and float((C - Cp).abs().max()) <= 2e-5
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""Port parity: the sim's public surface, ``p2g`` (``method="auto"``),
+"""Port parity: the sim's public surface, ``p2g`` (every ``method``),
 ``g2p``, ``advect_extra``, ``apic_scatter`` and ``apic_scatter_f``
 (values and VJPs), and ``sim/rollout.py``'s ``make_step_fn`` +
 ``rollout`` over 3 frames x 2 substeps (``neuma_tpu_torch`` against
@@ -128,23 +128,25 @@ def test_apic_scatter_matches_jax(g):
 
 @pytest.mark.parametrize("g", GRIDS)
 def test_p2g_matches_jax(g):
+    """Every ``method``: 'auto' (the blocked path), 'matmul' and 'scatter',
+    each against the JAX package's ``p2g`` with that method, values and
+    gradients."""
     (c, st, s, stress), (tc, tst, ts, tstress), rng = _scene(g)
     du = rng.standard_normal(g ** 3).astype(np.float32)
     df = rng.standard_normal((g ** 3, 3)).astype(np.float32)
+    for method in ("auto", "matmul", "scatter"):
+        def jfn(x, v, C, sr):
+            return jmpm.p2g(c, st, ParticleState(x=x, v=v, C=C, F=s.F), sr, method=method)
 
-    def jfn(x, v, C, sr):
-        return jmpm.p2g(c, st, ParticleState(x=x, v=v, C=C, F=s.F), sr)
-
-    outs, jgrads = _jax_vjp(jfn, (s.x, s.v, s.C, stress), (du, df))
-    tin = [t.clone().requires_grad_(True) for t in (ts.x, ts.v, ts.C, tstress)]
-    touts = tsim.p2g(tc, tst, TState(tin[0], tin[1], tin[2], ts.F), tin[3])
-    tgrads = _grads_torch(touts, (du, df), tin)
-    for name, got, want in zip(("grid_m", "grid_mv", "dx", "dv", "dC", "dstress"),
-                               list(touts) + list(tgrads), list(outs) + list(jgrads)):
-        assert _err(got, want) <= TOL, name
-    for method in ("matmul", "scatter"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            tsim.p2g(tc, tst, ts, tstress, method=method)
+        outs, jgrads = _jax_vjp(jfn, (s.x, s.v, s.C, stress), (du, df))
+        tin = [t.clone().requires_grad_(True) for t in (ts.x, ts.v, ts.C, tstress)]
+        touts = tsim.p2g(tc, tst, TState(tin[0], tin[1], tin[2], ts.F), tin[3], method=method)
+        tgrads = _grads_torch(touts, (du, df), tin)
+        for name, got, want in zip(("grid_m", "grid_mv", "dx", "dv", "dC", "dstress"),
+                                   list(touts) + list(tgrads), list(outs) + list(jgrads)):
+            assert _err(got, want) <= TOL, f"{method} {name}"
+    with pytest.raises(ValueError, match="unknown p2g method"):
+        tsim.p2g(tc, tst, ts, tstress, method="dense")
 
 
 @pytest.mark.parametrize("g", GRIDS)

@@ -84,11 +84,18 @@ def test_float_atomic_detector_catches_one():
 
 
 def test_modules_name_their_jax_counterpart():
+    checked = set()
     for path in PORT.rglob("*.py"):
         if path.name in ("__init__.py", "kernels.py", "device.py", "interop.py"):
             continue
         doc = ast.get_docstring(ast.parse(path.read_text())) or ""
         assert "neuma_tpu/" in doc, f"{path.relative_to(REPO)} docstring names no JAX counterpart"
+        checked.add(str(path.relative_to(PORT)))
+    new = {"vis/instance.py", "vis/campath.py", "vis/viewer.py", "apps/visualize.py",
+           "utils/profiling.py"}
+    assert new <= checked
+    for rel in new:
+        assert f"neuma_tpu/{rel}" in ast.get_docstring(ast.parse((PORT / rel).read_text())), rel
 
 
 def test_importing_the_port_builds_nothing():
@@ -145,6 +152,25 @@ def test_entry_points_raise_without_cuda():
                  lambda: evaluate.main(["-r", "any-dir", "-g", "any-dir"]),
                  lambda: register_gaussians(None, [], None, RegisterConfig(), None),
                  lambda: LPIPSMetric()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    from neuma_tpu_torch.apps import visualize
+    from neuma_tpu_torch.core.types import MPMConstants
+    from neuma_tpu_torch.render.camera import Camera
+    from neuma_tpu_torch.render.gaussians import create_from_points
+    from neuma_tpu_torch.render.rasterize import RasterConfig, rasterize
+    from neuma_tpu_torch.vis.instance import NeuMAInstance
+    from neuma_tpu_torch.vis.viewer import DynamicViewer
+
+    pack = create_from_points(np.full((4, 3), 0.5, np.float32), sh_degree=0)
+    cam = Camera.look_at(eye=np.array([0.5, 0.5, -1.0]), target=np.full(3, 0.5), width=16,
+                         height=16)
+    for call in (lambda: visualize.main(["-c", "any-config.yaml"]),
+                 lambda: NeuMAInstance(MPMConstants(), []).simulate(),
+                 lambda: DynamicViewer(NeuMAInstance(MPMConstants(), [])),
+                 lambda: rasterize(pack.xyz, pack.get_covariance(), pack.get_opacity, cam,
+                                   torch.ones(3), shs=pack.get_features, sh_degree=0,
+                                   cfg=RasterConfig(max_pairs=1024, backend="pallas"))):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
