@@ -160,13 +160,37 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     640x640 view, ``RasterConfig(backend="pallas")`` gives auto's bits,
     ``"pallas_interpret"`` refuses CUDA tensors, and ``overflow`` fires
     when ``max_pairs`` is too small.
+17. Scale-out (``HALO_SHAPE``: the realworld shape with RGB ground truth,
+    particles spread 0.7 around 0.525, ``max_pairs`` 2^22 and a strain
+    rate on the stage-1 velocity): (a) K1, K2 and K3 against their plain
+    versions (phase 2's bounds) in each of the four halo views of a
+    4-rank cut (slab width 18, tol 2: 26x70x70 cells at x origins -4, 14,
+    32, 50, nbs (2, 5, 5)), on each view's own particles and on every
+    particle in one view (taps outside it on line -1), and on a payload
+    with tap lines -1 and 16 planted on each axis; each view's rows,
+    blocks and chunks and the kernels' CUDA-event ms. (b) Four ranks on
+    the card (``parallel.dryrun.spawn``, gloo: NCCL refuses two ranks on
+    one card; the exchanges stage through pinned host buffers) run the
+    ``grid_mode="halo"`` value-and-grad (bins with >= 25 % slack over the
+    particles per slab at the start; views on ranks 0-2) twice: loss within rtol 1e-4
+    and each gradient leaf within a scaled 1e-3 of the single-process
+    replicated path on the card, every rank equal, reruns bitwise, no
+    pair or halo overflow, K1-K3 launched on every rank and K4/K5 on the
+    ranks with views; each rank's ms/frame forward + backward, the
+    exchange's bytes and host ms per substep, beside the single-process
+    ms/frame. (c) An NCCL world of one through the same code (its
+    neighbour is a local copy), held to (b) and to the single process;
+    two NCCL ranks where two cards exist, else the line ``nccl
+    multi-rank: not run (1 card)``. (d) ``dryrun_multichip(4)`` (gloo,
+    mesh 2 x 2): a finite loss.
 
 The scenes follow ``bench.py``'s recipe with random weights from seed 0.
 Output: one JSON line ``{"kernels": [...]}`` (launches counted on the
 headline training path; ``launches_app`` in the CLI run of phase 13;
 ``launches_render`` and ``launches_inference`` in the CLI runs of phase 14;
 ``launches_regist`` in the registration CLI run of phase 15;
-``launches_view`` in one ``simulate`` and three renders of phase 16),
+``launches_view`` in one ``simulate`` and three renders of phase 16;
+``launches_halo_rank0`` on rank 0 in one value-and-grad of phase 17b),
 the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 """
@@ -2483,6 +2507,413 @@ def view_phase(report, serve_root: Path, lora: Path) -> bool:
     return ok
 
 
+# Phase 17: the realworld shape (bench.py's 30,000 particles, 70^3, 2
+# frames x 20 substeps, three 1920x1080 views, InvariantFull (64, 64) with
+# LoRA r 16, SH 3) with the particles spread 0.7 around 0.525 (as JAX's
+# test_halo_train_step_at_realcapture_shape spreads them, so every slab
+# holds particles), RGB ground truth, and the pair budget raised to 2^22
+# (such a view needs ~3.4M pairs). The stage-1 velocity gets a strain rate
+# so the LoRA gradient is not rounding (see APP_STRAIN_RATE).
+HALO_SHAPE = dict(n_particles=30000, grid=70, frames=2, substeps=20, width=1920, height=1080,
+                  n_views=3, force_mask=False, max_pairs=1 << 22, max_per_tile=512)
+HALO_SPREAD = 0.7
+HALO_RANKS = 4
+HALO_TOL = 2  # the grounding halo step's drift tolerance
+HALO_STRAIN_RATE = 5.0 * APP_STRAIN_RATE
+
+
+def halo_scene(device, shape=None):
+    """The phase's scene, its per-particle stage-1 velocity and its RGB
+    ground truth, from seeds 0 and 5; ``shape`` overrides ``HALO_SHAPE``'s
+    keys."""
+    from neuma_tpu_torch.train.grounding import build_scene
+
+    p = dict(HALO_SHAPE, **(shape or {}))
+    frames = p.pop("frames")
+    scene = build_scene(**p, spread=HALO_SPREAD, seed=0, device=device)
+    x = scene.init_x.cpu()
+    v0 = torch.tensor([0.3, 0.0, 0.0]) + (x - x.mean(0)) @ HALO_STRAIN_RATE.T
+    gt = 0.25 + 0.5 * torch.rand((frames, p["n_views"], 3, p["height"], p["width"]),
+                                 generator=torch.Generator().manual_seed(5))
+    return scene, v0.to(device), gt.to(device)
+
+
+def halo_value_and_grad(scene, device):
+    """``(init_v, gt) -> (loss, aux, grads)``: [d init_v] + the LoRA
+    leaves' gradients, added over the world when the scene has a mesh."""
+    from neuma_tpu_torch.train.grounding import _sum_over_ranks, make_rollout_loss
+
+    loss_fn = make_rollout_loss(scene, device=device)
+    params, _ = lora_params(scene)
+
+    def vg(init_v, gt):
+        iv = init_v.detach().clone().requires_grad_(True)
+        loss, aux = loss_fn(iv, torch.ones(gt.shape[0], device=device), gt)
+        grads = _sum_over_ranks(scene, torch.autograd.grad(loss, [iv] + params))
+        return loss.detach(), aux, grads
+
+    return vg, loss_fn
+
+
+def halo_capacity(scene, n_shards: int):
+    """Particles per slab at the start, and a bin capacity with >= 25 %
+    slack over the fullest (a multiple of 128)."""
+    from neuma_tpu_torch.parallel import halo
+
+    c = scene.constants
+    w = halo.slab_width(c.num_grids, n_shards)
+    counts = torch.bincount(halo.owner_of(c, scene.init_x, w, n_shards), minlength=n_shards)
+    return counts.tolist(), -(-int(counts.max()) * 5 // 4 // 128) * 128
+
+
+def halo_rank(device: str = "cuda", shape=None, profile: bool = False) -> dict:
+    """17b/17c, what each rank runs: the halo-mode value-and-grad on the
+    phase's scene over a one-axis mesh of the world (bins sized by
+    ``halo_capacity``), timed, twice, after a forward (and with
+    ``profile`` a second forward, its device time read on rank 0; on the
+    CPU only to try the code at a small ``shape``)."""
+    import torch.distributed as dist
+
+    from neuma_tpu_torch import kernels
+    from neuma_tpu_torch.parallel import halo
+    from neuma_tpu_torch.parallel.distributed import Mesh
+    from neuma_tpu_torch.train.grounding import rank_views
+
+    world = dist.get_world_size()
+    mesh = Mesh(("dp",), (world,))
+    scene, v0, gt = halo_scene(device, shape)
+    counts, capacity = halo_capacity(scene, world)
+    scene = dataclasses.replace(scene, mesh=mesh, particle_axis="dp", grid_mode="halo",
+                                halo_capacity=capacity)
+    vg, loss_fn = halo_value_and_grad(scene, device)
+    frames, steps = gt.shape[0], gt.shape[0] * scene.substeps
+    card = device == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    # the forward alone: the exchanges' bytes and host seconds per substep
+    halo.reset_exchange_stats()
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss_fn(v0, torch.ones(frames, device=device), gt)
+    sync()
+    fwd_ms = (time.perf_counter() - t0) / frames * 1e3
+    fwd_x = dict(halo.exchange_stats)
+    # rank 0 profiles one more forward, device activity only (its own
+    # kernels: the card is shared); the others run it too, so the
+    # collectives line up
+    prof = None
+    if profile and card:
+        import contextlib
+
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        rank0 = mesh.rank == 0
+        with (torch_profile(activities=[ProfilerActivity.CUDA]) if rank0
+              else contextlib.nullcontext()) as p:
+            sync()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                loss_fn(v0, torch.ones(frames, device=device), gt)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if rank0:
+            busy_ms = sum(ev.self_device_time_total for ev in p.key_averages()
+                          if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            prof = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms)
+    runs = []
+    for _ in range(2):
+        kernels.reset_launches()
+        halo.reset_exchange_stats()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        loss, aux, grads = vg(v0, gt)
+        sync()
+        runs.append(dict(ms=(time.perf_counter() - t0) / frames * 1e3, loss=loss.cpu(),
+                         grads=[g.cpu() for g in grads], launches=dict(kernels.launches),
+                         exchange=dict(halo.exchange_stats),
+                         overflow=bool(aux["overflow"]), halo_overflow=bool(aux["halo_overflow"]),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 if card else 0.0))
+    a, b = runs
+    views = rank_views(len(scene.cameras), mesh, scene.view_axis)
+    return dict(rank=mesh.rank, world=world, backend=dist.get_backend(), views=views,
+                slab_counts=counts, capacity=capacity, profile_forward=prof,
+                fwd_ms=fwd_ms, fwd_exchange_per_substep=dict(
+                    bytes=fwd_x["bytes"] / steps, ms=fwd_x["seconds"] / steps * 1e3,
+                    calls=fwd_x["calls"] / steps),
+                bitwise=bool(torch.equal(a["loss"], b["loss"])) and all(
+                    torch.equal(x, y) for x, y in zip(a["grads"], b["grads"])),
+                **{k: v for k, v in b.items()}, launches_first=a["launches"])
+
+
+def planted_payload(payload):
+    """``payload`` with tap lines outside 0..15 planted on live rows: -1
+    and 16 on each axis, and two x taps at -1 on one row set (a particle
+    two lines below a view's edge)."""
+    from neuma_tpu_torch.sim import p2g_kernel as pk
+
+    live = torch.nonzero(payload[:, 0:9].abs().sum(1) > 0).squeeze(1)
+    out = payload.clone()
+    plants = [((0,), -1.0), ((2,), 16.0), ((3,), -1.0), ((5,), 16.0), ((6,), -1.0), ((8,), 16.0),
+              ((0, 1), -1.0)]
+    for k, (taps, line) in enumerate(plants):
+        for t in taps:
+            out[live[k::len(plants) + 1], pk._L0 + t] = line
+    return out
+
+
+@torch.no_grad()
+def view_kernel_checks(scene, shards: int, tol: int, gen) -> dict:
+    """17a: K1, K2 and K3 against their plain versions in each shard's
+    halo view of ``scene`` at rest (random C, stress and cotangents), on
+    the shard's own bin and on every particle in shard 1's view: K1 on the
+    view's payload, K2 on the view's grid velocity (grid_op of K1's fold,
+    unfolded), K3 in both roles of the step backward; then the
+    planted-line payload (``planted_payload``) through all three on the
+    full cube. Per view and kernel: the scaled error (K3 per output
+    group), the kernel's and its plain version's CUDA-event ms on the
+    prepared payload and slabs (the fold and unfold are not timed; K3 the
+    mean of its two roles, as in phase 2) and the bound of phase 2's
+    formula on this view's data (the in-view taps only); and each view's
+    rows, blocks and chunks."""
+    from neuma_tpu_torch.core.types import GridGeom, ParticleState
+    from neuma_tpu_torch.parallel import halo
+    from neuma_tpu_torch.sim import p2g_kernel as pk
+    from neuma_tpu_torch.sim.mpm import _p2g_terms, grid_op
+
+    c, dev = scene.constants, scene.init_x.device
+    n = scene.init_x.shape[0]
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    state = ParticleState.initial(scene.init_x, 0.3 * rnd(n, 3))
+    state = ParticleState(x=state.x, v=state.v, C=0.5 * rnd(n, 3, 3), F=state.F)
+    stress = 1e-3 * rnd(n, 3, 3)
+    w = halo.slab_width(c.num_grids, shards)
+    lo = halo.HALO + tol
+    part = halo.partition_particles(c, state, scene.statics, shards, n)
+    groups = (slice(0, 1), slice(1, 4), slice(4, 13), slice(13, 16))
+    kappa = 4.0 * float(c.inv_dx) ** 2
+    out, ok = {"views": []}, True
+
+    def timed(err, kernel, plain, nbytes, flops, reps=1):
+        """One kernel's entry: ``kernel`` / ``plain`` time one call each;
+        ``reps`` calls make up the entry (K3's two roles: their mean)."""
+        bound = bound_ms(nbytes, flops)
+        return dict(err=err, ms=cuda_ms(kernel, 10) / reps, plain_ms=cuda_ms(plain, 2) / reps,
+                    bound_ms=bound[0], bound_by=bound[1])
+
+    # each shard's own bin, then every particle in shard 1's view (most of
+    # their taps lie outside it: line -1)
+    for s, own in [(s, True) for s in range(shards)] + [(1, False)]:
+        if own:
+            live = int(part.valid[s].sum())
+            idx = part.perm[s][:live]
+        else:
+            live, idx = n, torch.arange(n, device=dev)
+        bst = ParticleState(*(t[idx] for t in (state.x, state.v, state.C, state.F)))
+        bstat = type(scene.statics)(*(t[idx] for t in (
+            scene.statics.vol, scene.statics.rho, scene.statics.clip_bound,
+            scene.statics.enabled)))
+        geom = GridGeom(dims=(w + 2 * lo, c.num_grids, c.num_grids),
+                        origin=torch.tensor([s * w - lo, 0, 0], device=dev))
+        nbs, NB = pk._num_blocks(c, geom)
+        lay = pk.build_step_layouts(c, bst.x, geom)
+        mass, b, affine = _p2g_terms(c, bstat, bst, stress[idx])
+        srt = lay.sort
+        payload = pk.pack_payload(c, lay.scatter, srt.fx, srt.loc, mass, b, affine)
+        c2b = lay.scatter.c2b
+        rows, M = payload.shape[0], c2b.shape[0]
+        # taps in the view: the product over the axes of the in-view taps
+        taps_in = int((srt.loc >= 0).sum(-1).prod(-1).sum())
+        r = dict(shard=s, particles_of="own bin" if own else "all", origin=s * w - lo,
+                 dims=list(geom.dims), nbs=list(nbs), particles=live, rows=rows, blocks=NB,
+                 chunks=M, taps_inside=taps_in, taps_outside=int((srt.loc < 0).sum()),
+                 occupied_blocks=int(torch.unique(c2b[lay.scatter.valid.reshape(-1, pk.CHUNK)
+                                                      .sum(1) > 0]).numel()))
+        r["p2g"] = timed(
+            scaled_err(pk.run_p2g_fwd(payload, c2b, NB), pk.run_p2g_fwd_plain(payload, c2b, NB)),
+            lambda: pk.run_p2g_fwd(payload, c2b, NB),
+            lambda: pk.run_p2g_fwd_plain(payload, c2b, NB),
+            rows * PAYLOAD_COLS_READ["p2g"] * 4 + M * 4 + NB * 16384 * 4, taps_in * 28)
+        grid = pk._fold(pk.run_p2g_fwd_plain(payload, c2b, NB), geom.dims, nbs)
+        vel = grid_op(c, grid[:, 3], grid[:, :3], geom)
+        slabs_v = pk.unfold_blocks(vel, geom.dims, nbs)
+        zeros3 = torch.zeros_like(bst.x)
+        zeros33 = torch.zeros((live, 3, 3), device=dev)
+        pay_g = pk.pack_payload(c, lay.gather, srt.fx, srt.loc, None, zeros3, zeros33)
+        a2 = (pay_g, slabs_v, c2b, float(c.inv_dx))
+        fixed = M * 4 + rows * 16 * 4  # c2b in, (rows, 16) out
+        r["g2p"] = timed(
+            scaled_err(pk.run_apic_gather(*a2), pk.run_apic_gather_plain(*a2)),
+            lambda: pk.run_apic_gather(*a2), lambda: pk.run_apic_gather_plain(*a2),
+            rows * PAYLOAD_COLS_READ["g2p"] * 4 + gather_slab_cells(pay_g, c2b) * 16 + fixed,
+            taps_in * 34)
+        d_new_v, A2 = rnd(live, 3), kappa * 1e-2 * rnd(live, 3, 3)
+        a3s = [(pay, slabs, c2b, float(c.inv_dx), True) for pay, slabs in (
+            (payload, pk.unfold_blocks(rnd(geom.num_cells, 4), geom.dims, nbs)),
+            (pk.pack_payload(c, lay.gather, srt.fx, srt.loc, None, d_new_v, A2), slabs_v))]
+        cells3 = sum(gather_slab_cells(a3[0], c2b) for a3 in a3s) / 2
+        r["g2p_derivs"] = timed(
+            max(scaled_err_cols(pk.run_apic_gather(*a3), pk.run_apic_gather_plain(*a3), groups)
+                for a3 in a3s),
+            lambda: [pk.run_apic_gather(*a3) for a3 in a3s],
+            lambda: [pk.run_apic_gather_plain(*a3) for a3 in a3s],
+            rows * PAYLOAD_COLS_READ["g2p_derivs"] * 4 + cells3 * 16 + fixed, taps_in * 71, 2)
+        ok &= (r["p2g"]["err"] <= K12_TOL and r["g2p"]["err"] <= K12_TOL
+               and r["g2p_derivs"]["err"] <= K3_TOL)
+        out["views"].append(r)
+    # the planted lines, full cube
+    lay = pk.build_step_layouts(c, state.x)
+    mass, b, affine = _p2g_terms(c, scene.statics, state, stress)
+    srt = lay.sort
+    payload = planted_payload(pk.pack_payload(c, lay.scatter, srt.fx, srt.loc, mass, b, affine))
+    nbs, NB = pk._num_blocks(c)
+    c2b = lay.scatter.c2b
+    slabs = torch.randn((NB, 4, 16, 16, 16), generator=gen).to(dev)
+    out["planted"] = dict(
+        rows_planted=int((payload != pk.pack_payload(c, lay.scatter, srt.fx, srt.loc, mass, b,
+                                                     affine)).any(1).sum()),
+        p2g_err=scaled_err(pk.run_p2g_fwd(payload, c2b, NB), pk.run_p2g_fwd_plain(payload, c2b, NB)),
+        p2g_bitwise=bool(torch.equal(pk.run_p2g_fwd(payload, c2b, NB),
+                                     pk.run_p2g_fwd(payload, c2b, NB))),
+        g2p_err=scaled_err(pk.run_apic_gather(payload, slabs, c2b, float(c.inv_dx)),
+                           pk.run_apic_gather_plain(payload, slabs, c2b, float(c.inv_dx))),
+        g2p_derivs_err=scaled_err_cols(
+            pk.run_apic_gather(payload, slabs, c2b, float(c.inv_dx), True),
+            pk.run_apic_gather_plain(payload, slabs, c2b, float(c.inv_dx), True), groups))
+    pl = out["planted"]
+    ok &= (pl["p2g_err"] <= K12_TOL and pl["p2g_bitwise"] and pl["g2p_err"] <= K12_TOL
+           and pl["g2p_derivs_err"] <= K3_TOL)
+    out["ok"] = ok
+    return out
+
+
+def halo_phase(report) -> bool:
+    """Phase 17: scale-out on the card (see the module docstring)."""
+    import chip_smoke as this  # the spawned ranks find halo_rank by module
+    from neuma_tpu_torch.parallel import halo
+    from neuma_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    out = {"nvidia_smi": smi, "shape": HALO_SHAPE, "spread": HALO_SPREAD}
+    scene, v0, gt = halo_scene("cuda")
+    c = scene.constants
+
+    # (a) the geom forms of K1-K3, each shard's view
+    t0 = time.perf_counter()
+    views = view_kernel_checks(scene, HALO_RANKS, HALO_TOL, torch.Generator().manual_seed(17))
+    out["views"] = views
+    for r in views["views"]:
+        log(f"[halo:views] shard {r['shard']} ({r['particles_of']}): view {r['dims']} at x "
+            f"{r['origin']}, nbs "
+            f"{r['nbs']}, {r['particles']} particles, {r['rows']} rows, {r['blocks']} blocks "
+            f"({r['occupied_blocks']} occupied), {r['chunks']} chunks, {r['taps_outside']} of "
+            f"{9 * r['particles']} tap lines outside, {r['taps_inside']} of "
+            f"{27 * r['particles']} taps inside; "
+            + "; ".join(f"{name} err {k['err']:.2e} kernel {k['ms']:.4f} ms, plain "
+                        f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']})"
+                        for name, k in (("K1", r["p2g"]), ("K2", r["g2p"]),
+                                        ("K3 (mean of 2 roles)", r["g2p_derivs"])))
+            + f" (gates {K12_TOL:.0e}, {K3_TOL:.0e}; kernels alone, no fold or unfold)")
+    log(f"[halo:planted] {json.dumps(views['planted'])} ({time.perf_counter() - t0:.1f} s)")
+    if not views["ok"]:
+        log("[halo] FAILED: a geom kernel check")
+        return False
+
+    # the single-process replicated path on the card
+    vg, _ = halo_value_and_grad(scene, "cuda")
+    vg(v0, gt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_1, aux_1, grads_1 = vg(v0, gt)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) / gt.shape[0] * 1e3
+    grads_1 = [g.cpu() for g in grads_1]
+    log(f"[halo:single] one process, replicated grid: loss {float(loss_1):.6f} overflow "
+        f"{bool(aux_1['overflow'])} {single_ms:.2f} ms/frame (forward+backward)")
+    out["single"] = dict(loss=float(loss_1), ms_per_frame=single_ms,
+                         overflow=bool(aux_1["overflow"]))
+    del scene, vg
+    torch.cuda.empty_cache()
+
+    def gate(ranks, tag):
+        ref = ranks[0]
+        rel = abs(float(ref["loss"]) - float(loss_1)) / abs(float(loss_1))
+        errs = [scaled_err(a, b) for a, b in zip(ref["grads"], grads_1)]
+        same = all(torch.equal(r["loss"], ref["loss"]) and all(
+            torch.equal(a, b) for a, b in zip(r["grads"], ref["grads"])) for r in ranks)
+        launched = all(all(r["launches"].get(k, 0) > 0 for k in ("p2g", "g2p", "g2p_derivs"))
+                       and all((r["launches"].get(k, 0) > 0) == bool(r["views"])
+                               for k in ("composite", "composite_bwd")) for r in ranks)
+        flags = not any(r["halo_overflow"] or r["overflow"] for r in ranks)
+        bitwise = all(r["bitwise"] for r in ranks)
+        log(f"[halo:{tag}] {len(ranks)} rank(s) over {ref['backend']}, slab width "
+            f"{halo.slab_width(c.num_grids, len(ranks))}, tol {HALO_TOL}, particles per slab "
+            f"{ref['slab_counts']}, bins of {ref['capacity']} (>= 25 % slack)")
+        for r in ranks:
+            x = r["fwd_exchange_per_substep"]
+            log(f"[halo:{tag}] rank {r['rank']} ({r['backend']}, views {r['views']}): "
+                f"{r['ms']:.2f} ms/frame forward+backward ({r['fwd_ms']:.2f} forward), "
+                f"peak {r['peak_gib']:.2f} GiB; exchange per substep (forward) "
+                f"{x['bytes'] / 1e6:.3f} MB sent in {x['calls']:.0f} calls, {x['ms']:.3f} ms "
+                f"host incl. staging; launches {r['launches']}")
+        pf = ref["profile_forward"]
+        if pf:
+            log(f"[halo:{tag}] rank 0's forward, its own kernels: wall {pf['wall_ms']:.2f} ms, "
+                f"device busy {pf['busy_ms']:.2f} ms (idle share {pf['idle_share']:.3f})")
+        log(f"[halo:{tag}] vs one process: loss {float(ref['loss']):.6f} rel gap {rel:.2e} "
+            f"(bound 1e-4), gradient scaled max error {max(errs):.2e} over {len(errs)} leaves "
+            f"(bound {GRAD_TOL:.0e}); ranks equal {same}; reruns bitwise {bitwise}; "
+            f"K1-K3 on every rank and K4/K5 where views {launched}; no overflow {flags}")
+        return dict(loss_rel_gap=rel, grad_errs=errs, ranks_equal=same, bitwise=bitwise,
+                    launched=launched, no_overflow=flags,
+                    ranks=[{k: v for k, v in r.items() if k not in ("grads", "loss")}
+                           | {"loss": float(r["loss"])} for r in ranks],
+                    ok=rel <= 1e-4 and max(errs) <= GRAD_TOL and same and bitwise
+                    and launched and flags)
+
+    # (b) four ranks on the one card (gloo: NCCL refuses two ranks on one card)
+    t0 = time.perf_counter()
+    ranks4 = spawn(this.halo_rank, HALO_RANKS, args=("cuda", None, True), device="cuda",
+                   backend="gloo")
+    log(f"[halo:4] {HALO_RANKS} ranks on one card over gloo (faces staged through pinned "
+        f"host buffers): {time.perf_counter() - t0:.1f} s")
+    out["four"] = gate(ranks4, "4")
+
+    # (c) NCCL: a world of one through the same code, and two ranks where two cards exist
+    t0 = time.perf_counter()
+    ranks1 = spawn(this.halo_rank, 1, device="cuda", backend="nccl")
+    out["nccl1"] = gate(ranks1, "nccl1")
+    rel41 = abs(float(ranks1[0]["loss"]) - float(ranks4[0]["loss"])) / abs(float(ranks4[0]["loss"]))
+    err41 = max(scaled_err(a, b) for a, b in zip(ranks1[0]["grads"], ranks4[0]["grads"]))
+    out["nccl1"].update(vs_four=dict(loss_rel_gap=rel41, grad_err=err41))
+    log(f"[halo:nccl1] vs four gloo ranks: loss rel gap {rel41:.2e}, gradient scaled max error "
+        f"{err41:.2e} ({time.perf_counter() - t0:.1f} s)")
+    ok_nccl = out["nccl1"]["ok"] and rel41 <= 1e-4 and err41 <= GRAD_TOL
+    if torch.cuda.device_count() >= 2:
+        out["nccl2"] = gate(spawn(this.halo_rank, 2, device="cuda", backend="nccl"), "nccl2")
+        ok_nccl &= out["nccl2"]["ok"]
+    else:
+        log("nccl multi-rank: not run (1 card)")
+        out["nccl2"] = "not run (1 card)"
+
+    # (d) the dry run
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(HALO_RANKS, device="cuda", backend="gloo")
+    out["dryrun"] = dict(dry, seconds=time.perf_counter() - t0)
+    log(f"[halo:dryrun] {dry['line']} ({out['dryrun']['seconds']:.1f} s)")
+    ok_dry = bool(np.isfinite(dry["loss"])) and not dry["halo_overflow"]
+
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[halo] {smi}; phase {out['seconds']:.1f} s")
+    report["halo"] = out
+    ok = out["four"]["ok"] and ok_nccl and ok_dry
+    if not ok:
+        log("[halo] FAILED")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2601,6 +3032,8 @@ def main() -> int:
     lora = sorted((REPO / "build" / "chip_smoke_app" / "logs" / "bb" / "finetune").glob(
         "*_lora.npz"))[-1] if ok_app else None
     ok_view = ok_regist and view_phase(report, REPO / "build" / "chip_smoke_serve", lora)
+    # 17. scale-out
+    ok_halo = ok_view and halo_phase(report)
     report.update(kernels=rec, launches_train_headline=launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "build"
@@ -2609,7 +3042,7 @@ def main() -> int:
     if not ok:
         log("[train] FAILED")
         return 1
-    if not (ok_dense and ok_app and ok_serve and ok_regist and ok_view):
+    if not (ok_dense and ok_app and ok_serve and ok_regist and ok_view and ok_halo):
         return 1
 
     sources = {
@@ -2631,6 +3064,7 @@ def main() -> int:
             "launches_inference": report["serve"]["inference"]["launches"].get(name, 0),
             "launches_regist": report["regist"]["launches"].get(name, 0),
             "launches_view": report["view"]["launches"].get(name, 0),
+            "launches_halo_rank0": report["halo"]["four"]["ranks"][0]["launches"].get(name, 0),
             "check": "pass", "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -93,7 +93,7 @@ def main(argv=None, device=None):
 
     # Multi-process entry (a no-op in one process): only the primary
     # writes checkpoints and logs.
-    initialize()
+    initialize(device)
     primary = is_primary()
 
     np.random.seed(cfg.get("seed", 42))

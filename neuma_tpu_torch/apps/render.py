@@ -75,7 +75,7 @@ def main(argv=None, device=None) -> ServeResult:
     args = parse_args(argv)
     device = resolve_device(device)
     cfg = load_config(args.config, args.set)
-    initialize()
+    initialize(device)
     if args.sim_dt is not None:
         cfg.sim.dt = args.sim_dt
     if args.change_base_model is not None:

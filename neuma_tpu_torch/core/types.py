@@ -1,10 +1,9 @@
 """Simulation state containers.
 
 Counterpart of ``neuma_tpu/core/types.py``: ``MPMConstants`` (with
-``from_cfg``), ``Statics`` (with ``from_sections`` and
-``with_enabled_at_step``) and
-``ParticleState`` as plain dataclasses of float32 tensors, each with a
-``.to(device)``.
+``from_cfg``), ``GridGeom`` (a view of the grid), ``Statics`` (with
+``from_sections`` and ``with_enabled_at_step``) and ``ParticleState`` as
+plain dataclasses of float32 tensors, each with a ``.to(device)``.
 
 Conventions (as in the JAX package): the grid is a cube of
 ``num_grids`` cells per side in [0, 1]^3 with ``dx = 1 / num_grids``;
@@ -14,6 +13,7 @@ affine matrix.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -73,6 +73,46 @@ class MPMConstants:
 
     def to(self, device) -> "MPMConstants":
         return _to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridGeom:
+    """A view of the simulation grid for the scatter and gather
+    primitives: a (possibly non-cubic) box of ``dims`` cells whose local
+    cell (0, 0, 0) sits at the global cell ``origin``.
+
+    ``geom=None`` everywhere means the full cube ``[0, num_grids)^3``.
+    The halo-exchange step (``parallel/halo.py``) passes each rank's
+    slab view ``(w + lo + hi, G, G)`` at its own x origin. Positions stay
+    global; the edge clamp to ``[0, G-1]`` runs in global coordinates
+    before the translation into the view, and taps outside the view add
+    nothing (they belong to a neighbouring rank's view).
+    """
+
+    dims: tuple  # (gx, gy, gz), static
+    origin: torch.Tensor = dataclasses.field(
+        default_factory=lambda: torch.zeros(3, dtype=torch.int64)
+    )  # (3,) int64 global cell of local (0, 0, 0)
+
+    @property
+    def num_cells(self) -> int:
+        gx, gy, gz = self.dims
+        return gx * gy * gz
+
+    @classmethod
+    def cube(cls, num_grids: int, device="cpu") -> "GridGeom":
+        return cls(dims=(num_grids,) * 3, origin=torch.zeros(3, dtype=torch.int64, device=device))
+
+    def to(self, device) -> "GridGeom":
+        return _to(self, device)
+
+
+def geom_dims(constants: MPMConstants, geom: Optional[GridGeom]) -> tuple:
+    """The ``(gx, gy, gz)`` cells of ``geom``, the full cube without it
+    (the JAX package's ``blocked._geom_dims``)."""
+    if geom is None:
+        return (constants.num_grids,) * 3
+    return tuple(geom.dims)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,7 +18,8 @@
 //     in order; __match_any_sync/__popc rank an entry among the warp's
 //     earlier entries of its lane; per-warp lane counts are scanned
 //     (warps in order, then lanes) into each entry's position. Entries
-//     whose y/z weight product is 0 (pad rows) are dropped. Each entry is
+//     whose y/z weight product is 0 (pad rows) or whose y or z line lies
+//     outside [0, 16) (a tap outside a grid view) are dropped. Each entry is
 //     stored with its 7 lane values: v_c = yz b_eff_c + yz_i a_c1 + yz_k a_c2,
 //     v0_c = yz a_c0 and gm yz.
 //  2. The entries of a lane are walked in (particle, y tap, z tap) order,
@@ -92,14 +93,17 @@ static_assert(OFF_EV % 16 == 0 && OFF_XW % 4 == 0, "alignment");
 constexpr int SUM_SPLIT = 16;  // CTAs per block in the second launch
 constexpr int SUM_PER_THREAD = BLOCK_ELEMS / SUM_SPLIT / THREADS;  // 4
 
-// Entry e of the chunk: its lane (y * 16 + z), or -1 when its weight is 0.
+// Entry e of the chunk: its lane (y * 16 + z), or -1 when its weight is 0
+// or its y or z line lies outside [0, 16) (a tap outside a grid view).
 __device__ __forceinline__ int entry_key(const float* rows, int e, float& wy, float& wz) {
   const int p = e / 9, ky = (e % 9) / 3, kz = e % 3;
   const float* r = rows + p * COLS;
   wy = r[W0 + 3 + ky];
   wz = r[W0 + 6 + kz];
   if (wy * wz == 0.f) return -1;
-  return (int)r[L0 + 3 + ky] * S + (int)r[L0 + 6 + kz];
+  const int ly = (int)r[L0 + 3 + ky], lz = (int)r[L0 + 6 + kz];
+  if ((unsigned)ly >= (unsigned)S || (unsigned)lz >= (unsigned)S) return -1;
+  return ly * S + lz;
 }
 
 // A line in [0, 3) other than a and b.
@@ -171,6 +175,8 @@ p2g_chunk_kernel(const float* __restrict__ payload, const int* __restrict__ c2b,
     // x taps per particle; taps on one line (clipped at the domain face) are
     // merged into the first, and a merged-away tap moves to a free line with
     // zero weight, so the walk's three taps always hit three distinct lines.
+    // A line outside [0, 16) (a tap outside a grid view, line -1) stays as it
+    // is: the walk skips it, and the in-range lines stay distinct.
     for (int p = t; p < CHUNK; p += THREADS) {
       int l[3];
       float w[3], wi[3];
@@ -309,11 +315,15 @@ p2g_chunk_kernel(const float* __restrict__ payload, const int* __restrict__ c2b,
       if (q < q1) {
         Entry cur = fetch(ev, ep, xw, xwi, xl, q);
         for (; q < q1; ++q) {
+          // an x tap on a line outside [0, 16) (outside a grid view) adds nothing
+          bool in[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k) in[k] = (unsigned)cur.l[k] < (unsigned)S;
           float o[3][4];
 #pragma unroll
           for (int k = 0; k < 3; ++k)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) o[k][c] = acc[(c * S + cur.l[k]) * S2 + t];
+            for (int c = 0; c < 4; ++c) o[k][c] = in[k] ? acc[(c * S + cur.l[k]) * S2 + t] : 0.f;
           const Entry nxt = fetch(ev, ep, xw, xwi, xl, q + 1 < q1 ? q + 1 : q);
 #pragma unroll
           for (int k = 0; k < 3; ++k) {
@@ -324,7 +334,8 @@ p2g_chunk_kernel(const float* __restrict__ payload, const int* __restrict__ c2b,
 #pragma unroll
           for (int k = 0; k < 3; ++k)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[(c * S + cur.l[k]) * S2 + t] = o[k][c];
+            for (int c = 0; c < 4; ++c)
+              if (in[k]) acc[(c * S + cur.l[k]) * S2 + t] = o[k][c];
           cur = nxt;
         }
       }

@@ -1,7 +1,9 @@
 """MLS-MPM step, slab and dense branches, with its direct adjoint.
 
 Counterpart of ``neuma_tpu/sim/mpm.py``: ``_p2g_terms``, ``grid_op``
-and ``grid_op_slabs`` (``noslip`` and ``freeslip``), ``g2p_core``,
+(on the cube or a ``GridGeom`` view, the boundary in global coordinates)
+and ``grid_op_slabs`` (``noslip`` and ``freeslip``), ``g2p_core`` (on the
+cube or a view: K2, and K1 and K3 in its backward, above 24 cells),
 ``_g2p_tail``, the public ``p2g`` (every ``method``: ``"auto"`` /
 ``"blocked"``, ``"matmul"`` and ``"scatter"``) with ``p2g_scatter``,
 ``_axis_weights`` and ``p2g_matmul``, ``g2p`` and ``advect_extra`` on
@@ -47,9 +49,10 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..core.types import MPMConstants, ParticleState, Statics
+from ..core.types import GridGeom, MPMConstants, ParticleState, Statics
 from .blocked import (
     _apic_bwd_dual_impl,
+    _blocked,
     _dense_forward,
     _layouts,
     _ordered_scatter,
@@ -64,8 +67,8 @@ from .p2g_kernel import (
     BLOCK,
     S,
     _cdiv,
+    apic_gather,
     build_step_layouts,
-    dense_to_slabs,
     gather_from_slabs,
     p2g_slab_scatter,
 )
@@ -126,9 +129,12 @@ def grid_op_slabs(constants: MPMConstants, slabs: torch.Tensor, nbs) -> torch.Te
     return torch.stack(v + [torch.zeros_like(v[0])], dim=1)
 
 
-def grid_op(constants: MPMConstants, grid_m: torch.Tensor, grid_mv: torch.Tensor) -> torch.Tensor:
+def grid_op(constants: MPMConstants, grid_m: torch.Tensor, grid_mv: torch.Tensor,
+            geom: Optional[GridGeom] = None) -> torch.Tensor:
     """Momentum -> velocity, gravity and the box boundary on the dense
-    grid: grid_m (G^3,), grid_mv (G^3, 3) -> velocity (G^3, 3)."""
+    grid or a ``geom`` view: grid_m (cells,), grid_mv (cells, 3) ->
+    velocity (cells, 3). In a view the boundary test runs in global
+    coordinates (local index + the view's origin)."""
     g = constants.num_grids
     bound = constants.bound
     gv = constants.gravity.to(grid_mv.dtype) * constants.dt
@@ -136,8 +142,11 @@ def grid_op(constants: MPMConstants, grid_m: torch.Tensor, grid_mv: torch.Tensor
     # where m == 0 divide by 1 (the value is replaced): no NaN either way
     denom = torch.where(has_mass, grid_m + constants.eps, 1.0)[:, None]
     v = torch.where(has_mass[:, None], grid_mv / denom + gv, gv)
-    idx = torch.arange(g ** 3, device=grid_mv.device)
-    coords = torch.stack([idx // (g * g), (idx // g) % g, idx % g], dim=-1)
+    gx, gy, gz = (g, g, g) if geom is None else geom.dims
+    idx = torch.arange(gx * gy * gz, device=grid_mv.device)
+    coords = torch.stack([idx // (gy * gz), (idx // gz) % gy, idx % gz], dim=-1)
+    if geom is not None:
+        coords = coords + geom.origin.to(device=grid_mv.device, dtype=torch.int64)[None, :]
     violating = ((coords < bound) & (v < 0.0)) | ((coords >= g - bound) & (v > 0.0))
     if constants.bc == "freeslip":
         return torch.where(violating, 0.0, v)
@@ -146,57 +155,58 @@ def grid_op(constants: MPMConstants, grid_m: torch.Tensor, grid_mv: torch.Tensor
     raise ValueError(f"invalid boundary condition: {constants.bc}")
 
 
-def _g2p_dense(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor):
+def _g2p_dense(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor, geom=None):
     """new_v = sum_o W_o grid_v[cell_o], new_C = kappa sum_o W_o grid_v[cell_o] (x) dpos_o."""
     kappa = 4.0 * constants.inv_dx * constants.inv_dx
-    flat, weight, _, dpos = _tap_geometry(constants, x)
+    flat, weight, _, dpos = _tap_geometry(constants, x, geom)
     v_taps = grid_v[flat]  # (N, 27, 3)
     new_v = torch.einsum("no,noi->ni", weight, v_taps)
     new_C = kappa * torch.einsum("no,noi,noj->nij", weight, v_taps, dpos)
     return new_v, new_C
 
 
-def _g2p_slab(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor, sort):
-    """The same contractions by K2 on the dense grid velocity's slabs."""
+def _g2p_slab(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor, sort, geom=None):
+    """The same contractions by K2 on the grid velocity's slabs."""
     zeros3 = torch.zeros_like(x)
     zeros33 = torch.zeros(x.shape + (3,), dtype=x.dtype, device=x.device)
-    slabs = dense_to_slabs(grid_v, constants.num_grids)
-    _, _, new_v, dA = gather_from_slabs(constants, x, slabs, None, zeros3, zeros33,
-                                        derivs=False, sort=sort)
+    _, _, new_v, dA = apic_gather(constants, x, None, zeros3, zeros33, grid_v, None,
+                                  derivs=False, sort=sort, geom=geom)
     return new_v, 4.0 * constants.inv_dx * constants.inv_dx * dA
 
 
 class _G2PCore(torch.autograd.Function):
-    """The G2P tap contractions (K2 on slab grids, plain gathers on the
-    dense grid); the backward routes the grid cotangent through the
+    """The G2P tap contractions (K2 on the kernels' branch, plain gathers
+    on the dense one); the backward routes the grid cotangent through the
     scatter with b = d new_v, A = kappa d new_C (the exact transpose: K1
     or the dense scatter) and the position cotangent through the same
     tap-space gather as the step backward (K3 or ``_apic_bwd_jnp``)."""
 
     @staticmethod
-    def forward(ctx, constants, sort, x, grid_v):
+    def forward(ctx, constants, sort, geom, x, grid_v):
         ctx.save_for_backward(x, grid_v)
-        ctx.constants, ctx.sort = constants, sort
-        if _slab_grid(constants):
-            return _g2p_slab(constants, x, grid_v, sort)
-        return _g2p_dense(constants, x, grid_v)
+        ctx.constants, ctx.sort, ctx.geom = constants, sort, geom
+        if _blocked(constants, geom):
+            return _g2p_slab(constants, x, grid_v, sort, geom)
+        return _g2p_dense(constants, x, grid_v, geom)
 
     @staticmethod
     def backward(ctx, dv, dC):
         x, grid_v = ctx.saved_tensors
-        constants = ctx.constants
+        constants, sort, geom = ctx.constants, ctx.sort, ctx.geom
         A = 4.0 * constants.inv_dx * constants.inv_dx * dC
-        _, d_grid = _scatter_forward(constants, x, None, dv, A, ctx.sort)
-        d_x, _, _, _ = _scatter_backward(constants, x, None, dv, A, None, grid_v, ctx.sort)
-        return None, None, d_x, d_grid
+        _, d_grid = _scatter_forward(constants, x, None, dv, A, sort, geom)
+        d_x, _, _, _ = _scatter_backward(constants, x, None, dv, A, None, grid_v, sort, geom)
+        return None, None, None, d_x, d_grid
 
 
-def g2p_core(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor, sort=None):
-    """The two tap contractions of G2P, (new_v, new_C), against the dense
-    grid velocity (G^3, 3), with the JAX package's custom backward.
-    ``sort`` may carry the step's layouts (slab grids only)."""
-    sort = _layouts(constants, x, sort)
-    return _G2PCore.apply(constants, sort, x, grid_v)
+def g2p_core(constants: MPMConstants, x: torch.Tensor, grid_v: torch.Tensor, sort=None,
+             geom: Optional[GridGeom] = None):
+    """The two tap contractions of G2P, (new_v, new_C), against the grid
+    velocity (cells, 3) of the full cube or the ``geom`` view, with the
+    JAX package's custom backward. ``sort`` may carry the step's layouts
+    (the kernels' branch only), built with the same ``geom``."""
+    sort = _layouts(constants, x, sort, geom)
+    return _G2PCore.apply(constants, sort, geom, x, grid_v)
 
 
 def _g2p_tail(

@@ -20,10 +20,19 @@ and packed into the same 48-column payload. Two kernels run on it:
   the port of ``_make_gather_kernel(derivs=True)``; the step backward
   runs it twice.
 
+The layouts also take a ``GridGeom`` view (the halo step's per-rank
+slab, ``parallel/halo.py``): block counts per axis (non-cubic, e.g.
+``(2, 5, 5)``), view-local block ids and tap lines, and line -1 for a tap
+outside the view, which every kernel skips. ``p2g_blocked`` (K1 and the
+fold onto the view, the JAX package's ``p2g_blocked_pallas``) and
+``apic_gather`` (the unfold into slabs, then K2 or K3; its
+``apic_gather_tpu``) serve such views and the full cube alike.
+
 Each wrapper takes its plain PyTorch version (``*_plain``) only for
 tensors on the CPU; on CUDA tensors it launches the kernel or raises.
-The layout glue (sorts, carving, payload, halo add, the slab <-> dense
-grid views of the public scatter and gather) is plain torch.
+The layout glue (sorts, carving, payload, halo add, fold and unfold, the
+slab <-> dense grid views of the public scatter and gather) is plain
+torch.
 Every ``argsort`` passes ``stable=True``, as ``jnp.argsort`` is stable.
 """
 from __future__ import annotations
@@ -34,7 +43,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..core.types import MPMConstants
+from ..core.types import GridGeom, MPMConstants, geom_dims
 
 BLOCK = 14
 S = BLOCK + 2  # 16: padded block side; S^2 = 256 lanes
@@ -73,7 +82,7 @@ class BlockSort(NamedTuple):
     bid: torch.Tensor  # (N,) flat block id per particle
     base: torch.Tensor  # (N, 3) stencil base cell
     fx: torch.Tensor  # (N, 3) fractional position
-    loc: torch.Tensor  # (N, 3, 3) local tap grid lines in [0, S)
+    loc: torch.Tensor  # (N, 3, 3) local tap grid lines in [0, S); -1 outside a view
 
 
 class StepLayouts(NamedTuple):
@@ -86,32 +95,48 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _num_blocks(constants: MPMConstants) -> Tuple[Tuple[int, int, int], int]:
-    nb = _cdiv(constants.num_grids, BLOCK)
-    return (nb, nb, nb), nb ** 3
+def _num_blocks(constants: MPMConstants, geom: Optional[GridGeom] = None):
+    """Blocks per axis of the grid view (the full cube without ``geom``)
+    and their product: ``nbs = cdiv(dims, BLOCK)``, non-cubic in a view."""
+    nbs = tuple(_cdiv(d, BLOCK) for d in geom_dims(constants, geom))
+    return nbs, nbs[0] * nbs[1] * nbs[2]
 
 
-def _sort_geometry(constants: MPMConstants, x: torch.Tensor):
+def _sort_geometry(constants: MPMConstants, x: torch.Tensor, geom: Optional[GridGeom] = None):
     """Stencil base, fractional position, local tap lines and flat block
-    id per particle (full-cube view)."""
+    id per particle. With a ``geom`` view the base is clamped into the
+    grid, then into the view, block ids and lines are view-local, and a
+    tap outside the view gets line -1 (the kernels give it nothing)."""
     g = constants.num_grids
-    (nbx, nby, nbz), NB = _num_blocks(constants)
+    (nbx, nby, nbz), NB = _num_blocks(constants, geom)
     p_x = x * constants.inv_dx
     base = torch.floor(p_x - 0.5).to(torch.int64)
     fx = p_x - base.to(x.dtype)
     taps = torch.clamp(
         base[:, :, None] + torch.arange(3, device=x.device)[None, None, :], 0, g - 1
     )
-    blk = torch.clamp(base, 0, g - 1) // BLOCK
-    loc = taps - (blk * BLOCK)[:, :, None]
+    if geom is None:
+        blk = torch.clamp(base, 0, g - 1) // BLOCK
+        loc = taps - (blk * BLOCK)[:, :, None]
+    else:
+        origin = geom.origin.to(device=x.device, dtype=torch.int64)
+        dims = torch.as_tensor(geom.dims, device=x.device)
+        bloc = torch.minimum(torch.clamp(torch.clamp(base, 0, g - 1) - origin, min=0), dims - 1)
+        blk = bloc // BLOCK
+        tl = taps - origin[None, :, None]
+        loc = tl - (blk * BLOCK)[:, :, None]
+        in_view = (tl >= 0) & (tl < dims[None, :, None]) & (loc >= 0) & (loc < S)
+        loc = torch.where(in_view, loc, -1)
     bid = (blk[:, 0] * nby + blk[:, 1]) * nbz + blk[:, 2]
     return base, fx, loc, bid, NB
 
 
-def block_sort(constants: MPMConstants, x: torch.Tensor) -> BlockSort:
-    """Stable order by (block id, index) plus per-block ranges."""
+def block_sort(constants: MPMConstants, x: torch.Tensor,
+               geom: Optional[GridGeom] = None) -> BlockSort:
+    """Stable order by (block id, index) plus per-block ranges, in the
+    ``geom`` view's blocks (the full cube without it)."""
     n = x.shape[0]
-    base, fx, loc, bid, NB = _sort_geometry(constants, x)
+    base, fx, loc, bid, NB = _sort_geometry(constants, x, geom)
     perm = torch.argsort(bid, stable=True)
     counts = torch.bincount(bid, minlength=NB)
     bstart = torch.cumsum(counts, 0) - counts
@@ -121,18 +146,20 @@ def block_sort(constants: MPMConstants, x: torch.Tensor) -> BlockSort:
 
 
 def build_chunk_layout(
-    constants: MPMConstants, x: torch.Tensor, chunk: int = CHUNK, sort: Optional[BlockSort] = None
+    constants: MPMConstants, x: torch.Tensor, chunk: int = CHUNK, sort: Optional[BlockSort] = None,
+    geom: Optional[GridGeom] = None,
 ) -> Tuple[ChunkLayout, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Carve the block-sorted order into ``chunk``-row padded chunks:
     M = ceil(N / C) + NB chunks, each block's run padded to a multiple
-    of C. Returns (layout, base, fx, loc)."""
-    _, NB = _num_blocks(constants)
+    of C. Returns (layout, base, fx, loc). ``sort`` must come from the
+    same ``geom``."""
+    _, NB = _num_blocks(constants, geom)
     n = x.shape[0]
     C = chunk
     M = _cdiv(n, C) + NB
     dev = x.device
     if sort is None:
-        sort = block_sort(constants, x)
+        sort = block_sort(constants, x, geom)
     perm, bstart, counts, bid = sort.perm, sort.bstart, sort.counts, sort.bid
 
     nchunk = (counts + C - 1) // C
@@ -157,13 +184,14 @@ def build_chunk_layout(
     return layout, sort.base, sort.fx, sort.loc
 
 
-def build_step_layouts(constants: MPMConstants, x: torch.Tensor) -> StepLayouts:
-    """Block sort and chunk carving of ``x.detach()``: the layouts carry
-    no autograd graph, as the JAX package builds them from
-    ``stop_gradient(x)``."""
+def build_step_layouts(constants: MPMConstants, x: torch.Tensor,
+                       geom: Optional[GridGeom] = None) -> StepLayouts:
+    """Block sort and chunk carving of ``x.detach()`` in the ``geom``
+    view: the layouts carry no autograd graph, as the JAX package builds
+    them from ``stop_gradient(x)``."""
     x = x.detach()
-    sort = block_sort(constants, x)
-    scatter, _, _, _ = build_chunk_layout(constants, x, CHUNK, sort)
+    sort = block_sort(constants, x, geom)
+    scatter, _, _, _ = build_chunk_layout(constants, x, CHUNK, sort, geom)
     # GATHER_CHUNK == CHUNK: the scatter and gather carvings are one.
     return StepLayouts(sort, scatter, scatter)
 
@@ -185,9 +213,10 @@ def refresh_step_layouts(
 
 
 def _resolve_layout(
-    constants: MPMConstants, x: torch.Tensor, chunk: int, shared
+    constants: MPMConstants, x: torch.Tensor, chunk: int, shared, geom: Optional[GridGeom] = None
 ) -> Tuple[ChunkLayout, BlockSort]:
-    """``shared`` may be None, a BlockSort or a StepLayouts."""
+    """``shared`` may be None, a BlockSort or a StepLayouts, built with
+    the same ``geom`` (the layouts are view-local)."""
     if isinstance(shared, StepLayouts):
         if chunk == CHUNK:
             return shared.scatter, shared.sort
@@ -195,8 +224,8 @@ def _resolve_layout(
             return shared.gather, shared.sort
         shared = shared.sort
     if shared is None:
-        shared = block_sort(constants, x)
-    layout, _, _, _ = build_chunk_layout(constants, x, chunk, shared)
+        shared = block_sort(constants, x, geom)
+    layout, _, _, _ = build_chunk_layout(constants, x, chunk, shared, geom)
     return layout, shared
 
 
@@ -487,20 +516,110 @@ def slabs_to_dense(slabs: torch.Tensor, num_grids: int) -> torch.Tensor:
     return t[:g, :g, :g].reshape(g ** 3, ch)
 
 
-def dense_to_slabs(grid: torch.Tensor, num_grids: int) -> torch.Tensor:
-    """The dense (G^3, CH <= 4) grid -> slabs (NB, 4, S, S, S): slab line l
-    of block b reads dense line 14 b + l, zero past the grid and in the
-    channels CH..3 (the JAX package's ``unfold_blocks``)."""
-    g = num_grids
-    nb = _cdiv(g, BLOCK)
-    ch = grid.shape[1]
-    gp = nb * BLOCK + 2
-    arr = grid.reshape(g, g, g, ch)
-    arr = torch.nn.functional.pad(arr, (0, 4 - ch, 0, gp - g, 0, gp - g, 0, gp - g))
-    lines = (torch.arange(nb, device=grid.device)[:, None] * BLOCK
-             + torch.arange(S, device=grid.device)[None, :])  # (nb, S)
-    t = arr[lines][:, :, lines][:, :, :, :, lines]  # (nb, S, nb, S, nb, S, 4)
-    return t.permute(0, 2, 4, 6, 1, 3, 5).reshape(nb ** 3, 4, S, S, S).contiguous()
+def unfold_blocks(grid_ch: torch.Tensor, dims, nbs, ch_out: int = 4) -> torch.Tensor:
+    """A grid view (num_cells, CH <= ch_out) of ``dims`` cells -> per-block
+    slabs (NB, ch_out, S, S, S): slab b covers the view's lines
+    ``[b * BLOCK, b * BLOCK + S)`` per axis, zero past the view and in the
+    missing channels; blocks in x-major flat order (``nbs`` per axis). The
+    JAX package's ``unfold_blocks`` and ``_unfold_axis``, as one gather."""
+    gx, gy, gz = dims
+    ch = grid_ch.shape[1]
+    gp = [n * BLOCK + 2 for n in nbs]
+    arr = grid_ch.reshape(gx, gy, gz, ch)
+    arr = torch.nn.functional.pad(
+        arr, (0, ch_out - ch, 0, gp[2] - gz, 0, gp[1] - gy, 0, gp[0] - gx))
+    lines = [(torch.arange(n, device=grid_ch.device)[:, None] * BLOCK
+              + torch.arange(S, device=grid_ch.device)[None, :]) for n in nbs]  # (nb, S)
+    t = arr[lines[0]][:, :, lines[1]][:, :, :, :, lines[2]]  # (nbx, S, nby, S, nbz, S, ch)
+    return t.permute(0, 2, 4, 6, 1, 3, 5).reshape(
+        nbs[0] * nbs[1] * nbs[2], ch_out, S, S, S).contiguous()
+
+
+def _fold_axis(x: torch.Tensor, block: int) -> torch.Tensor:
+    """(..., nb, S, rest) -> (..., nb * block, rest): block cores
+    concatenate (stride == block) and each block's 2-line tail adds onto
+    the next block's head; the last block's tail is dropped."""
+    core = x[..., :block, :]
+    tail = x[..., block:, :]
+    zeros = lambda shape: x.new_zeros(shape)
+    tailpad = torch.cat([tail, zeros(tail.shape[:-2] + (block - tail.shape[-2],) + tail.shape[-1:])],
+                        dim=-2)
+    shifted = torch.cat([zeros(tailpad.shape[:-3] + (1,) + tailpad.shape[-2:]), tailpad[..., :-1, :, :]],
+                        dim=-3)
+    out = core + shifted
+    return out.reshape(x.shape[:-3] + (x.shape[-3] * block,) + x.shape[-1:])
+
+
+def _fold_blocks(pb: torch.Tensor, dims, nbs, block: int) -> torch.Tensor:
+    """Per-block (NB, S, S, S, CH) buffers -> the (gx, gy, gz, CH) grid
+    view: fold z, then y, then x, with the JAX package's operand order."""
+    S = block + 2
+    gx, gy, gz = dims
+    nbx, nby, nbz = nbs
+    ch = pb.shape[-1]
+    t = pb.reshape(nbx, nby, nbz, S, S, S, ch).permute(0, 1, 3, 4, 2, 5, 6)
+    t = _fold_axis(t, block)  # (nbx, nby, S, S, Gz, ch)
+    t = _fold_axis(t.permute(0, 2, 4, 1, 3, 5), block)  # (nbx, S, Gz, Gy, ch)
+    t = _fold_axis(t.permute(2, 3, 0, 1, 4), block)  # (Gz, Gy, Gx, ch)
+    return t.permute(2, 1, 0, 3)[:gx, :gy, :gz]
+
+
+def _fold(pb: torch.Tensor, dims, nbs) -> torch.Tensor:
+    """Per-block sums (NB, 4, S, S*S) -> the (num_cells, 4) grid view:
+    block cores tile the view and each block's 2-line tails add onto the
+    next block's head, per axis (``_fold_blocks``)."""
+    NB = pb.shape[0]
+    t = pb.reshape(NB, 4, S, S, S).permute(0, 2, 3, 4, 1)
+    return _fold_blocks(t, dims, nbs, BLOCK).reshape(dims[0] * dims[1] * dims[2], 4)
+
+
+def p2g_blocked(
+    constants: MPMConstants,
+    x: torch.Tensor,
+    gm: Optional[torch.Tensor],
+    b: torch.Tensor,
+    A: torch.Tensor,
+    sort=None,
+    geom: Optional[GridGeom] = None,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Blocked APIC scatter into the ``geom`` view (the full cube without
+    it): K1's per-block sums folded onto the view, (grid_m (cells,) or
+    None, grid_f (cells, 3)). The JAX package's ``p2g_blocked_pallas``.
+    ``sort`` may carry the step's layouts, built with the same ``geom``."""
+    dims = geom_dims(constants, geom)
+    nbs, NB = _num_blocks(constants, geom)
+    layout, bsort = _resolve_layout(constants, x, CHUNK, sort, geom)
+    payload = pack_payload(constants, layout, bsort.fx, bsort.loc, gm, b, A)
+    grid = _fold(run_p2g_fwd(payload, layout.c2b, NB), dims, nbs)
+    return (grid[:, 3] if gm is not None else None), grid[:, :3]
+
+
+def apic_gather(
+    constants: MPMConstants,
+    x: torch.Tensor,
+    gm: Optional[torch.Tensor],
+    b: torch.Tensor,
+    A: torch.Tensor,
+    df: torch.Tensor,
+    du: Optional[torch.Tensor],
+    derivs: bool = True,
+    sort=None,
+    geom: Optional[GridGeom] = None,
+):
+    """Blocked tap gather against the view grid's channels ``df`` (cells,
+    3) and ``du`` (cells,) or None: the view unfolded into slabs, then K3
+    (``derivs``) or K2. Returns per particle (dx (N, 3), dgm (N,) or
+    None, db (N, 3), dA (N, 3, 3)). The JAX package's ``apic_gather_tpu``."""
+    n = x.shape[0]
+    dims = geom_dims(constants, geom)
+    nbs, _ = _num_blocks(constants, geom)
+    layout, bsort = _resolve_layout(constants, x, GATHER_CHUNK, sort, geom)
+    payload = pack_payload(constants, layout, bsort.fx, bsort.loc, gm, b, A)
+    grid_ch = df if du is None else torch.cat([df, du[:, None]], dim=1)
+    slabs = unfold_blocks(grid_ch, dims, nbs)
+    res = run_apic_gather(payload, slabs, layout.c2b, float(constants.inv_dx), derivs)[layout.dest]
+    dgm = res[:, 0] if du is not None else None
+    return res[:, 13:16], dgm, res[:, 1:4], res[:, 4:13].reshape(n, 3, 3)
 
 
 def p2g_slab_scatter(

@@ -1,10 +1,10 @@
 """Grounding rollout loss and the two training stages.
 
 Counterpart of ``neuma_tpu/train/grounding.py`` (``GroundingScene``,
-``_remat_policy``, ``make_rollout_loss`` for ``grid_mode="replicated"``,
-``rollout_decay_weights``, ``decay_rate_for_epoch``, the error classes,
-``optimize_init_velocity`` and ``finetune_constitutive`` with its
-train-state file). Per frame:
+``_remat_policy``, ``make_rollout_loss`` for ``grid_mode="replicated"``
+and ``"halo"``, ``rollout_decay_weights``, ``decay_rate_for_epoch``, the
+error classes, ``optimize_init_velocity`` and ``finetune_constitutive``
+with its train-state file). Per frame:
 ``substeps`` x (elasticity MLP -> MPM step -> plasticity MLP, one
 ``make_packed_substep`` Function), then binding, then one Particle-GS
 render per view (the unrolled per-view loop the JAX package runs for up
@@ -21,6 +21,21 @@ The material weights live in the scene's material modules; the trainers
 update their LoRA leaves in place. The ground-truth images are an
 argument of the loss and of the trainers, not part of the scene.
 
+With ``grid_mode="halo"`` the rollout runs over ``scene.mesh`` (a
+``parallel.distributed.Mesh``, one rank per shard): once per frame every
+rank partitions the replicated particles into slab bins, steps its own
+bin through the substeps with ``parallel/halo.py``'s bins step (drift
+tolerance 2 cells; the materials on the bin, the padding slots' stress
+zeroed), and the bins are gathered back by an all-gather whose backward
+is a reduce-scatter. Each view is rendered by exactly one rank (view v
+by rank v mod world). The returned loss has the value of the global
+loss (the ranks' partial losses added in rank order) and the gradient of
+this rank's partial loss, so the ranks' gradients sum to the
+single-process gradient; the trainers add them over the world before
+clipping. A rank that renders no view still runs the backward through
+the sim's collectives. With a ``vp`` axis the sim is replicated along
+it and each copy's backward carries its own rank's views.
+
 ``build_scene`` makes the scene of ``bench.py``'s recipe (seed-0 points in
 [0.4, 0.6]^3, InvariantFull materials with LoRA, SH Gaussians on the
 points, look-at cameras around the box), made with this package alone.
@@ -34,7 +49,7 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..core.device import resolve_device
 from ..core.types import MPMConstants, ParticleState, Statics
@@ -42,6 +57,14 @@ from ..materials.meta import (
     InvariantFullMetaElasticity,
     InvariantFullMetaPlasticity,
     MetaMaterialConfig,
+)
+from ..parallel.distributed import is_primary
+from ..parallel.halo import (
+    gather_bins,
+    make_halo_bins_step,
+    partition_particles,
+    shard_of,
+    unpartition,
 )
 from ..render.binding import (
     BindingTable,
@@ -88,9 +111,21 @@ class GroundingScene:
     scaling_modifier: float = 1.0
     raster_cfg: RasterConfig = dataclasses.field(default_factory=RasterConfig)
     exclude_frames: Sequence[int] = ()
+    # The world the rollout runs over (``parallel.distributed.Mesh``): the
+    # halo grid's slabs go along ``particle_axis`` (default "dp"), and the
+    # views are split over ``view_axis`` (the sim replicated along it), or
+    # round-robin over the world without it (``rank_views``).
+    mesh: Optional[object] = None
+    particle_axis: Optional[str] = None
+    view_axis: Optional[str] = None
+    # 'replicated' (one process) or 'halo' (slab-decomposed grid with the
+    # ring exchange of parallel/halo.py; requires ``mesh``)
     grid_mode: str = "replicated"
+    # per-shard particle-bin capacity for halo mode (None: N, always safe)
+    halo_capacity: Optional[int] = None
     # 'frame' (per-frame checkpoint), 'none' (keep every substep's
-    # residuals) or 'auto' ('none' when the estimate fits the budget)
+    # residuals) or 'auto' ('none' when the estimate fits the budget;
+    # 'frame' in halo mode)
     remat: str = "auto"
 
     def to(self, device) -> "GroundingScene":
@@ -121,6 +156,8 @@ def _remat_policy(scene: GroundingScene, num_frames: int) -> str:
         raise ValueError(
             f"unknown remat policy: {scene.remat!r} (expected 'frame', 'none', or 'auto')"
         )
+    if scene.grid_mode != "replicated":
+        return "frame"  # halo bins change the residual shape; keep remat
     g3 = int(scene.constants.num_grids) ** 3
     n = int(scene.init_x.shape[0])
     per_substep = 4 * (4 * g3 + 54 * n + 60 * n)
@@ -132,19 +169,43 @@ def _remat_policy(scene: GroundingScene, num_frames: int) -> str:
     return "none" if total <= _REMAT_BUDGET_BYTES else "frame"
 
 
+def rank_views(n_views: int, mesh, view_axis: Optional[str] = None) -> List[int]:
+    """The views this rank renders, each view on exactly one rank of the
+    world. Without ``view_axis`` they go round-robin over the ranks. With
+    it, view ``v`` goes to the ranks at coordinate ``v % size`` on that
+    axis, and among those round-robin over the other axes' coordinates."""
+    if view_axis is None:
+        slot = mesh.rank
+    else:
+        if view_axis not in mesh.shape:
+            raise ValueError(f"view_axis {view_axis!r} is not an axis of the mesh "
+                             f"{mesh.axis_names}")
+        rest = 0
+        for axis in mesh.axis_names:
+            if axis != view_axis:
+                rest = rest * mesh.shape[axis] + mesh.coord(axis)
+        slot = mesh.coord(view_axis) + mesh.shape[view_axis] * rest
+    return [v for v in range(n_views) if v % mesh.world == slot]
+
+
 def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
     """Builds ``loss(init_v, frame_weights, gt_images) -> (loss, aux)``
     on ``device`` (``cuda`` unless given; the scene's material modules
     move there in place). ``init_v`` is (3,) or (N, 3);
     ``frame_weights`` (frames,); ``gt_images`` (frames, views, 3, H, W).
-    ``aux`` holds the device bools ``overflow`` and ``halo_overflow``.
-    The loss is differentiable with respect to ``init_v`` and the
-    materials' trainable (LoRA) parameters."""
+    ``aux`` holds the device bools ``overflow`` and ``halo_overflow``
+    (ORed over the world in halo mode). The loss is differentiable with
+    respect to ``init_v`` and the materials' trainable (LoRA) parameters."""
     device = resolve_device(device)
+    mesh = scene.mesh
     if scene.grid_mode == "halo":
-        raise ValueError("grid_mode='halo' is scale-out work of a later slice")
-    if scene.grid_mode != "replicated":
+        if mesh is None:
+            raise ValueError("grid_mode='halo' requires scene.mesh")
+    elif scene.grid_mode != "replicated":
         raise ValueError(f"unknown grid_mode: {scene.grid_mode!r}")
+    elif mesh is not None:
+        raise ValueError("grid_mode='replicated' over a mesh (the particle-sharded "
+                         "replicated-grid rollout) is not ported: use grid_mode='halo'")
     scene = scene.to(device)
     constants = scene.constants
     n_particles = scene.init_x.shape[0]
@@ -159,6 +220,16 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
     substep = make_packed_substep(
         constants, scene.statics, scene.elasticity, scene.plasticity
     )
+    views = list(range(len(scene.cameras)))
+    if mesh is not None:  # each view on one rank
+        halo_axis = scene.particle_axis or "dp"
+        if scene.view_axis == halo_axis:
+            raise ValueError(f"view_axis {halo_axis!r} is the halo grid's axis: the sim "
+                             "must be replicated along the view axis")
+        views = rank_views(len(views), mesh, scene.view_axis)
+        halo_step = make_halo_bins_step(constants, mesh, halo_axis, tol=2)
+        shard, n_shards = mesh.coord(halo_axis), mesh.shape[halo_axis]
+        capacity = scene.halo_capacity or n_particles
 
     def render_one(cam, means3d, cov_def):
         if scene.force_mask_data:
@@ -167,24 +238,48 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         else:
             kw = dict(shs=shs, sh_degree=sh_degree)
         img, aux = rasterize_with_aux(
-            means3d, cov_def, opacity, cam, scene.background, cfg=scene.raster_cfg, **kw
+            means3d, cov_def, opacity, scene.cameras[cam], scene.background,
+            cfg=scene.raster_cfg, **kw
         )
         return img, aux["overflow"]
+
+    def render_frame(state, de_x_prev, g_prev, gt_frame):
+        de_x = denormalize_points(state.x, scene.size, scene.center)
+        means3d = apply_binding_xyz(table, de_x, de_x_prev, g_prev)
+        if not views:
+            zero = torch.zeros((), device=device)
+            return de_x, means3d, zero, zero.bool()
+        # stop-grad covariance path (reference)
+        cov_def = deform_cov_by_F(cov0, apply_binding_F(table, state.F.detach()))
+        out = [render_one(v, means3d, cov_def) for v in views]
+        imgs = torch.stack([o[0] for o in out])
+        overflow = torch.stack([o[1] for o in out]).any()
+        frame_loss = pixel_loss(imgs, gt_frame[views]) * len(views)
+        return de_x, means3d, frame_loss, overflow
 
     def frame_body(state, layouts, de_x_prev, g_prev, gt_frame):
         for _ in range(scene.substeps):
             if layouts is not None:  # the slab branch's block sort, amortized
                 layouts, _ = refresh_step_layouts(constants, state.x, layouts)
             state = substep(state, layouts)
-        de_x = denormalize_points(state.x, scene.size, scene.center)
-        means3d = apply_binding_xyz(table, de_x, de_x_prev, g_prev)
-        # stop-grad covariance path (reference)
-        cov_def = deform_cov_by_F(cov0, apply_binding_F(table, state.F.detach()))
-        views = [render_one(cam, means3d, cov_def) for cam in scene.cameras]
-        imgs = torch.stack([v[0] for v in views])
-        overflow = torch.stack([v[1] for v in views]).any()
-        frame_loss = pixel_loss(imgs, gt_frame) * gt_frame.shape[0]
-        return state, layouts, de_x, means3d, frame_loss, overflow
+        return (state, layouts) + render_frame(state, de_x_prev, g_prev, gt_frame)
+
+    def halo_sim(x, v, C, F):
+        """One frame's substeps in bins space: partition once, step this
+        rank's bin, gather the bins back. Returns the state and the
+        frame's halo overflow (bin capacity or this rank's margin)."""
+        state = ParticleState(x, v, C, F)
+        part = partition_particles(constants, state, scene.statics, n_shards, capacity)
+        bins, statics, valid = shard_of(part, shard)
+        margin = torch.zeros((), dtype=torch.bool, device=device)
+        for _ in range(scene.substeps):
+            stress = torch.where(valid[:, None, None], scene.elasticity(bins.F), 0.0)
+            bins, bad = halo_step(statics, bins, stress)
+            bins = dataclasses.replace(bins, F=scene.plasticity(bins.F))
+            margin = margin | bad
+        gathered = gather_bins(mesh, halo_axis, bins)
+        out = unpartition(dataclasses.replace(part, state=gathered), n_particles, state)
+        return out.x, out.v, out.C, out.F, part.overflow | margin
 
     def loss_fn(init_v, frame_weights, gt_images):
         init_v = torch.as_tensor(init_v, dtype=torch.float32, device=device)
@@ -196,15 +291,28 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         state = ParticleState.initial(scene.init_x, v0)
         de_x_prev = denormalize_points(scene.init_x, scene.size, scene.center)
         g_prev = k_xyz0
-        layouts = _step_sort(constants, scene.init_x)  # None on a dense grid
-        frame_losses, overflows = [], []
+        halo = scene.grid_mode == "halo"
+        layouts = None if halo else _step_sort(constants, scene.init_x)  # None on a dense grid
+        frame_losses, overflows, halo_flags = [], [], []
         for f in range(n_frames):
-            args = (state, layouts, de_x_prev, g_prev, gt_images[f])
-            if remat:
-                out = checkpoint(frame_body, *args, use_reentrant=False)
+            if halo:
+                args = (state.x, state.v, state.C, state.F)
+                if remat:  # the sim's collectives rerun in the same order on every rank
+                    with set_checkpoint_early_stop(False):
+                        *parts, halo_flag = checkpoint(halo_sim, *args, use_reentrant=False)
+                else:
+                    *parts, halo_flag = halo_sim(*args)
+                state = ParticleState(*parts)
+                halo_flags.append(halo_flag)
+                out = render_frame(state, de_x_prev, g_prev, gt_images[f])
             else:
-                out = frame_body(*args)
-            state, layouts, de_x, means3d, frame_loss, overflow = out
+                args = (state, layouts, de_x_prev, g_prev, gt_images[f])
+                if remat:
+                    out = checkpoint(frame_body, *args, use_reentrant=False)
+                else:
+                    out = frame_body(*args)
+                state, layouts, *out = out
+            de_x, means3d, frame_loss, overflow = out
             overflows.append(overflow)
             # Excluded frames add no loss and keep the previous refs.
             if f in scene.exclude_frames:
@@ -213,12 +321,32 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
             frame_losses.append(frame_weights[f] * 1.0 * frame_loss)
             de_x_prev, g_prev = de_x.detach(), means3d.detach()
         loss = torch.stack(frame_losses).sum()
-        return loss, {
-            "overflow": torch.stack(overflows).any(),
-            "halo_overflow": torch.zeros((), dtype=torch.bool, device=device),
-        }
+        overflow = torch.stack(overflows).any()
+        halo_overflow = (torch.stack(halo_flags).any() if halo_flags
+                         else torch.zeros((), dtype=torch.bool, device=device))
+        if mesh is not None:
+            if not views and torch.is_grad_enabled():
+                # no view here: the backward must still run the sim's collectives
+                loss = loss + 0.0 * state.x.sum()
+            # the value of the global loss, the gradient of this rank's part
+            loss = loss - loss.detach() + mesh.all_sum(loss.detach())
+            overflow, halo_overflow = mesh.any(overflow), mesh.any(halo_overflow)
+        return loss, {"overflow": overflow, "halo_overflow": halo_overflow}
 
     return loss_fn
+
+
+def _sum_over_ranks(scene: GroundingScene, grads):
+    """The trained leaves' gradients added over the world (rank order) when
+    the scene has a mesh: the ranks' partial losses sum to the loss."""
+    if scene.mesh is None:
+        return list(grads)
+    flat = scene.mesh.all_sum(torch.cat([g.reshape(-1) for g in grads]))
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].reshape(g.shape))
+        i += g.numel()
+    return out
 
 
 class NonFiniteGradientError(RuntimeError):
@@ -233,7 +361,8 @@ class PairBudgetOverflowError(RuntimeError):
 
 
 class HaloOverflowError(RuntimeError):
-    """The halo-sharded step dropped particles (a later slice runs it)."""
+    """The halo-sharded step dropped particles: a shard bin overflowed its
+    capacity or a particle's stencil left its slab view."""
 
 
 def _raise_on_overflow(aux: dict, where: str) -> None:
@@ -311,8 +440,10 @@ def optimize_init_velocity(
         else:
             ivr = iv.reshape(-1, 3)
             reg = (torch.mean(torch.abs(ivr[:, 0])) + torch.mean(torch.abs(ivr[:, 2]))) / 2.0
+        if scene.mesh is not None and scene.mesh.rank != 0:
+            reg = reg.detach()  # its gradient is added over the world once
         loss = loss_rgb + reg_w * reg
-        (g,) = torch.autograd.grad(loss, [iv])
+        (g,) = _sum_over_ranks(scene, torch.autograd.grad(loss, [iv]))
         loss = loss.detach()
         updates, opt_state = opt.update([g], opt_state, [init_v])
         apply_updates([init_v], updates)
@@ -363,7 +494,9 @@ def finetune_constitutive(
     the JAX package's file): it is written at every checkpoint epoch when
     ``write_state``, and, when ``resume_state`` and the file exists,
     restored before the first epoch, overriding ``start_epoch`` and the
-    materials' leaves."""
+    materials' leaves. Over a mesh (halo mode) the gradients are added
+    over the world before the clip, as the JAX package's jitted step
+    does implicitly, and only the primary rank writes the file."""
     device = resolve_device(device)
     num_epochs = int(cfg["num_epochs"])
     warmup = int(cfg.get("warmup_step", 0))
@@ -417,7 +550,7 @@ def finetune_constitutive(
         decay_rate = decay_rate_for_epoch(cfg, epoch, num_epochs)
         weights = rollout_decay_weights(gt.shape[0], decay_rate, decay_steps)
         loss, aux = loss_fn(init_v, weights, gt)
-        grads = torch.autograd.grad(loss, e_params + p_params)
+        grads = _sum_over_ranks(scene, torch.autograd.grad(loss, e_params + p_params))
         loss = loss.detach()
         ge, e_norm, e_bad = clip_by_global_norm_strict(grads[: len(e_params)], e_max_norm)
         gp, p_norm, p_bad = clip_by_global_norm_strict(grads[len(e_params) :], p_max_norm)
@@ -456,7 +589,7 @@ def finetune_constitutive(
         at_ckpt = epoch == 1 or epoch % 10 == 0 or epoch == num_epochs
         if checkpoint_fn and at_ckpt:
             checkpoint_fn(epoch, scene.elasticity.params(), scene.plasticity.params(), float(loss))
-        if ts_path is not None and write_state and at_ckpt:
+        if ts_path is not None and write_state and at_ckpt and is_primary():
             save_train_state(
                 ts_path, epoch,
                 {"e": scene.elasticity.params(), "p": scene.plasticity.params()},
@@ -499,13 +632,19 @@ def build_scene(
     lora_r: int = 16,
     lora_alpha: float = 16.0,
     sh_degree: int = 3,
+    spread: Optional[float] = None,
     device=None,
 ) -> GroundingScene:
     """The bench scene recipe with random weights from ``seed`` (base
-    weights scaled by 0.05, then LoRA r / alpha on every linear)."""
+    weights scaled by 0.05, then LoRA r / alpha on every linear). The
+    points fill [0.4, 0.6]^3, or with ``spread`` a cube of that side
+    around 0.525 (0.7 puts particles in every slab of a halo grid)."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
-    pts = (0.4 + 0.2 * rng.random((n_particles, 3))).astype(np.float32)
+    if spread is None:
+        pts = (0.4 + 0.2 * rng.random((n_particles, 3))).astype(np.float32)
+    else:
+        pts = (0.525 - spread / 2 + spread * rng.random((n_particles, 3))).astype(np.float32)
     colors = rng.random((n_particles, 3)).astype(np.float32)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     constants = MPMConstants(

@@ -203,7 +203,7 @@ def test_prepared_assets_without_a_source(run3, tmp_path):
 _RANK = """
 import json, torch.distributed as dist
 from neuma_tpu_torch.parallel import distributed
-started = distributed.initialize()
+started = distributed.initialize(device="cpu")
 print(json.dumps([started, distributed.is_primary(), dist.get_world_size()]))
 dist.destroy_process_group()
 """
@@ -211,7 +211,8 @@ dist.destroy_process_group()
 
 def test_distributed_entry(tmp_path):
     """One process: no process group, and primary. Two processes with
-    ``WORLD_SIZE=2`` (gloo on the CPU): a group of two, rank 0 primary."""
+    ``WORLD_SIZE=2`` on the CPU (gloo, from the device): a group of two,
+    rank 0 primary."""
     from neuma_tpu_torch.parallel import distributed
 
     env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}

@@ -145,8 +145,12 @@ def test_excluded_frame_adds_no_loss(scenes):
 
 
 def test_halo_grid_mode_raises(scenes):
+    """Halo mode without a mesh raises, as the JAX package's does (with a
+    mesh it runs: ``tests/test_torch_parallel.py``)."""
     import dataclasses
 
-    _, tscene, _ = scenes
-    with pytest.raises(ValueError, match="later slice"):
+    jscene, tscene, _ = scenes
+    with pytest.raises(ValueError, match="requires scene.mesh"):
+        jground.make_rollout_loss(dataclasses.replace(jscene, grid_mode="halo"))
+    with pytest.raises(ValueError, match="requires scene.mesh"):
         tground.make_rollout_loss(dataclasses.replace(tscene, grid_mode="halo"), device="cpu")

@@ -563,3 +563,30 @@ def test_ssim_and_lpips_card_match_cpu(cuda):
     torch.testing.assert_close(v_gpu, v_cpu, rtol=1e-5, atol=0)
     assert _scaled_err(g_gpu, g_cpu) <= 1e-5 and torch.equal(g_gpu, g_gpu2)
     torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernels_on_out_of_view_lines_and_halo_views(cuda):
+    """K1, K2 and K3 on a payload with tap lines -1 and 16 planted on each
+    axis (a tap outside a halo view adds and reads nothing), and in the
+    four slab views of a 70^3 grid cut for 4 ranks (26 x 70 x 70 cells at
+    x origins -4, 14, 32, 50; nbs (2, 5, 5)), each view's own particles
+    and every particle in one view: each kernel within a scaled 1e-5 of
+    its plain version (K3 per output group), K1 bitwise repeatable on the
+    planted payload (``chip_smoke.view_kernel_checks``)."""
+    import chip_smoke
+    from neuma_tpu_torch.train.grounding import build_scene
+
+    scene = build_scene(n_particles=20000, grid=70, substeps=1, width=64, height=64, n_views=1,
+                        force_mask=True, max_pairs=1 << 12, max_per_tile=64, layer_widths=(8,),
+                        lora_r=2, spread=0.7, device=cuda)
+    out = chip_smoke.view_kernel_checks(scene, 4, 2, torch.Generator().manual_seed(0))
+    assert [r["origin"] for r in out["views"][:4]] == [-4, 14, 32, 50]
+    assert all(r["nbs"] == [2, 5, 5] for r in out["views"])
+    assert out["views"][-1]["taps_outside"] > 0 and out["planted"]["rows_planted"] > 0
+    for r in out["views"]:
+        assert r["p2g_err"] <= 1e-5 and r["g2p_err"] <= 1e-5 and r["g2p_derivs_err"] <= 1e-5, r
+    pl = out["planted"]
+    assert pl["p2g_err"] <= 1e-5 and pl["p2g_bitwise"], pl
+    assert pl["g2p_err"] <= 1e-5 and pl["g2p_derivs_err"] <= 1e-5, pl
+    assert out["ok"]

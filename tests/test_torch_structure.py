@@ -45,6 +45,24 @@ def test_every_sort_is_stable():
                     f"{path.name}:{node.lineno} sorts without stable=True")
 
 
+PARALLEL = ["distributed.py", "halo.py", "sharding.py", "dryrun.py"]
+
+
+def test_parallel_modules_are_checked_and_spawned_ranks_import_no_jax():
+    """The scale-out modules are among the sources scanned above, and a
+    spawned rank (which imports the port's parallel package and the rank
+    functions of ``tests/test_torch_parallel.py``) loads no JAX at all."""
+    for name in PARALLEL:
+        assert PORT / "parallel" / name in SOURCES, name
+    code = ("import sys; sys.path.insert(0, 'tests'); import neuma_tpu_torch.parallel, "
+            "neuma_tpu_torch.parallel.dryrun, neuma_tpu_torch.train.grounding, test_torch_parallel; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'neuma_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_p2g_kernel_has_no_float_atomics():
     src = (PORT / "csrc" / "p2g.cu").read_text()
     assert "atomicAdd" not in src and "atomic" not in src.replace("atomics", "")
@@ -156,6 +174,7 @@ def test_entry_points_raise_without_cuda():
             call()
     from neuma_tpu_torch.apps import visualize
     from neuma_tpu_torch.core.types import MPMConstants
+    from neuma_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
     from neuma_tpu_torch.render.camera import Camera
     from neuma_tpu_torch.render.gaussians import create_from_points
     from neuma_tpu_torch.render.rasterize import RasterConfig, rasterize
@@ -168,6 +187,7 @@ def test_entry_points_raise_without_cuda():
     for call in (lambda: visualize.main(["-c", "any-config.yaml"]),
                  lambda: NeuMAInstance(MPMConstants(), []).simulate(),
                  lambda: DynamicViewer(NeuMAInstance(MPMConstants(), [])),
+                 lambda: spawn(print, 2), lambda: dryrun_multichip(2),
                  lambda: rasterize(pack.xyz, pack.get_covariance(), pack.get_opacity, cam,
                                    torch.ones(3), shs=pack.get_features, sh_degree=0,
                                    cfg=RasterConfig(max_pairs=1024, backend="pallas"))):
