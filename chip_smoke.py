@@ -183,6 +183,26 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     two NCCL ranks where two cards exist, else the line ``nccl
     multi-rank: not run (1 card)``. (d) ``dryrun_multichip(4)`` (gloo,
     mesh 2 x 2): a finite loss.
+18. The particle-sharded replicated-grid rollout at phase 17's scene:
+    (a) K1, K2 and K3 against their plain versions (phase 2's bounds,
+    times and bounds) on shard 0's payload, its 7,500 particles on the
+    whole 70^3 grid; (b) four gloo ranks on the card run ``grid_mode="replicated"`` over a dp
+    = 4 mesh (7,500 particles per shard; K1's per-block sums, 125 x 4 x
+    16 x 256 f32 = 8.2 MB, added over the ranks in rank order once per
+    substep forward and once in the backward, K3 in both roles on each
+    shard; views on ranks 0-2) with phase 17b's gates against the same
+    single-process path: loss within rtol 1e-4, each gradient leaf within
+    a scaled 1e-3, every rank equal, reruns bitwise, no overflow, K1-K3
+    launched on every rank and K4/K5 on the ranks with views; each rank's
+    ms/frame forward + backward and forward alone, and the grid sums'
+    bytes, calls and host ms per substep (forward, and forward +
+    backward), beside phase 17b's halo figures and the single process.
+19. ``python -m neuma_tpu_torch.examples.smoke_e2e`` (the port's
+    end-to-end example: a fabricated 64x64 scene, both training stages of
+    the CLI for 5 epochs over 4 frames, the render CLI) as a subprocess
+    under ``build/chip_smoke_e2e/``: exit 0, its JSON line with the device
+    ``cuda``, 5 frames, finite losses and K4/K5 launched (its 16^3 grid
+    takes the dense branch: K1-K3 are not).
 
 The scenes follow ``bench.py``'s recipe with random weights from seed 0.
 Output: one JSON line ``{"kernels": [...]}`` (launches counted on the
@@ -190,7 +210,9 @@ headline training path; ``launches_app`` in the CLI run of phase 13;
 ``launches_render`` and ``launches_inference`` in the CLI runs of phase 14;
 ``launches_regist`` in the registration CLI run of phase 15;
 ``launches_view`` in one ``simulate`` and three renders of phase 16;
-``launches_halo_rank0`` on rank 0 in one value-and-grad of phase 17b),
+``launches_halo_rank0`` on rank 0 in one value-and-grad of phase 17b;
+``launches_replicated_rank0`` likewise in phase 18; ``launches_smoke_e2e``
+over phase 19's two CLI runs),
 the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 """
@@ -487,7 +509,9 @@ def g2p_work(inp, rows_per_cta, threads_per_row):
 
 
 @torch.no_grad()
-def check_and_time(tag, inp, rec):
+def check_and_time(tag, inp, rec, composite: bool = True):
+    """K1-K3 (and with ``composite`` K4/K5) against their plain versions
+    on ``inp`` at phase 2's bounds, timed, into ``rec[name][tag]``."""
     from neuma_tpu_torch import kernels
     from neuma_tpu_torch.sim import p2g_kernel as pk
 
@@ -565,6 +589,9 @@ def check_and_time(tag, inp, rec):
         work=dict(g2p_work(inp, lib.neuma_g2p_derivs_rows_per_cta(),
                            lib.neuma_g2p_derivs_threads_per_row()), slab_cells_read=cells3),
     )
+    if not composite:
+        log_checks(tag, rec, KERNELS[:3])
+        return ok
     ok &= check_composite(tag, inp, rec)
     log(f"[check:{tag}] first view at rest needs {inp['pairs_needed']} (gaussian, tile) "
         f"pairs, max_pairs {inp['max_pairs']}: overflow {inp['raster_overflow']}")
@@ -2566,38 +2593,48 @@ def halo_capacity(scene, n_shards: int):
     return counts.tolist(), -(-int(counts.max()) * 5 // 4 // 128) * 128
 
 
-def halo_rank(device: str = "cuda", shape=None, profile: bool = False) -> dict:
-    """17b/17c, what each rank runs: the halo-mode value-and-grad on the
-    phase's scene over a one-axis mesh of the world (bins sized by
-    ``halo_capacity``), timed, twice, after a forward (and with
-    ``profile`` a second forward, its device time read on rank 0; on the
-    CPU only to try the code at a small ``shape``)."""
+def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
+              grid_mode: str = "halo") -> dict:
+    """17b/17c and 18, what each rank runs: the value-and-grad on the
+    phase's scene over a one-axis mesh of the world, particles on it
+    (``grid_mode="halo"``: bins sized by ``halo_capacity``;
+    ``"replicated"``: the particle shards and the summed grid), timed,
+    twice, after a forward (and with ``profile`` a second forward, its
+    device time read on rank 0; on the CPU only to try the code at a small
+    ``shape``). The sim's collectives (the halo exchanges, or the grid
+    sums) are counted in bytes and host seconds."""
     import torch.distributed as dist
 
     from neuma_tpu_torch import kernels
-    from neuma_tpu_torch.parallel import halo
+    from neuma_tpu_torch.parallel import halo, sharding
     from neuma_tpu_torch.parallel.distributed import Mesh
     from neuma_tpu_torch.train.grounding import rank_views
 
     world = dist.get_world_size()
     mesh = Mesh(("dp",), (world,))
     scene, v0, gt = halo_scene(device, shape)
-    counts, capacity = halo_capacity(scene, world)
-    scene = dataclasses.replace(scene, mesh=mesh, particle_axis="dp", grid_mode="halo",
-                                halo_capacity=capacity)
+    if grid_mode == "halo":
+        counts, capacity = halo_capacity(scene, world)
+        stats, reset_stats = halo.exchange_stats, halo.reset_exchange_stats
+    else:  # particle shards of the padded count
+        shard = -(-scene.init_x.shape[0] // world)
+        counts, capacity = [min(shard, scene.init_x.shape[0] - r * shard) for r in range(world)], shard
+        stats, reset_stats = sharding.grid_sum_stats, sharding.reset_grid_sum_stats
+    scene = dataclasses.replace(scene, mesh=mesh, particle_axis="dp", grid_mode=grid_mode,
+                                halo_capacity=capacity if grid_mode == "halo" else None)
     vg, loss_fn = halo_value_and_grad(scene, device)
     frames, steps = gt.shape[0], gt.shape[0] * scene.substeps
     card = device == "cuda"
     sync = torch.cuda.synchronize if card else (lambda: None)
-    # the forward alone: the exchanges' bytes and host seconds per substep
-    halo.reset_exchange_stats()
+    # the forward alone: the collectives' bytes and host seconds per substep
+    reset_stats()
     sync()
     t0 = time.perf_counter()
     with torch.no_grad():
         loss_fn(v0, torch.ones(frames, device=device), gt)
     sync()
     fwd_ms = (time.perf_counter() - t0) / frames * 1e3
-    fwd_x = dict(halo.exchange_stats)
+    fwd_x = dict(stats)
     # rank 0 profiles one more forward, device activity only (its own
     # kernels: the card is shared); the others run it too, so the
     # collectives line up
@@ -2623,7 +2660,7 @@ def halo_rank(device: str = "cuda", shape=None, profile: bool = False) -> dict:
     runs = []
     for _ in range(2):
         kernels.reset_launches()
-        halo.reset_exchange_stats()
+        reset_stats()
         if card:
             torch.cuda.reset_peak_memory_stats()
         sync()
@@ -2632,16 +2669,18 @@ def halo_rank(device: str = "cuda", shape=None, profile: bool = False) -> dict:
         sync()
         runs.append(dict(ms=(time.perf_counter() - t0) / frames * 1e3, loss=loss.cpu(),
                          grads=[g.cpu() for g in grads], launches=dict(kernels.launches),
-                         exchange=dict(halo.exchange_stats),
+                         exchange=dict(stats),
                          overflow=bool(aux["overflow"]), halo_overflow=bool(aux["halo_overflow"]),
                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 if card else 0.0))
     a, b = runs
+    per_substep = lambda x: dict(bytes=x["bytes"] / steps, ms=x["seconds"] / steps * 1e3,
+                                 calls=x["calls"] / steps)
     views = rank_views(len(scene.cameras), mesh, scene.view_axis)
     return dict(rank=mesh.rank, world=world, backend=dist.get_backend(), views=views,
-                slab_counts=counts, capacity=capacity, profile_forward=prof,
-                fwd_ms=fwd_ms, fwd_exchange_per_substep=dict(
-                    bytes=fwd_x["bytes"] / steps, ms=fwd_x["seconds"] / steps * 1e3,
-                    calls=fwd_x["calls"] / steps),
+                grid_mode=grid_mode, slab_counts=counts, capacity=capacity,
+                profile_forward=prof, fwd_ms=fwd_ms,
+                fwd_exchange_per_substep=per_substep(fwd_x),
+                vg_exchange_per_substep=per_substep(b["exchange"]),
                 bitwise=bool(torch.equal(a["loss"], b["loss"])) and all(
                     torch.equal(x, y) for x, y in zip(a["grads"], b["grads"])),
                 **{k: v for k, v in b.items()}, launches_first=a["launches"])
@@ -2788,17 +2827,92 @@ def view_kernel_checks(scene, shards: int, tol: int, gen) -> dict:
     return out
 
 
+_single = {}
+
+
+def single_reference() -> dict:
+    """The single-process replicated path on the card at ``HALO_SHAPE``,
+    which phases 17 and 18 are held to: loss, overflow, the gradients (on
+    the host) and ms/frame of a value-and-grad after a warm-up. Run once."""
+    if not _single:
+        scene, v0, gt = halo_scene("cuda")
+        vg, _ = halo_value_and_grad(scene, "cuda")
+        vg(v0, gt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, aux, grads = vg(v0, gt)
+        torch.cuda.synchronize()
+        _single.update(loss=loss.cpu(), overflow=bool(aux["overflow"]),
+                       grads=[g.cpu() for g in grads],
+                       ms_per_frame=(time.perf_counter() - t0) / gt.shape[0] * 1e3)
+        del scene, vg
+        torch.cuda.empty_cache()
+        log(f"[single] one process, replicated grid: loss {float(_single['loss']):.6f} overflow "
+            f"{_single['overflow']} {_single['ms_per_frame']:.2f} ms/frame (forward+backward)")
+    return _single
+
+
+def mesh_gate(ranks, tag: str) -> dict:
+    """Phase 17b's gates on ``mesh_rank`` results: loss within rtol 1e-4
+    and each gradient leaf within a scaled ``GRAD_TOL`` of
+    ``single_reference``, every rank equal, reruns bitwise, no overflow,
+    K1-K3 launched on every rank and K4/K5 on the ranks with views. Logs
+    each rank's times and the sim's collectives per substep."""
+    from neuma_tpu_torch.parallel import halo
+
+    ref, single = ranks[0], single_reference()
+    loss_1, grads_1 = single["loss"], single["grads"]
+    rel = abs(float(ref["loss"]) - float(loss_1)) / abs(float(loss_1))
+    errs = [scaled_err(a, b) for a, b in zip(ref["grads"], grads_1)]
+    same = all(torch.equal(r["loss"], ref["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(r["grads"], ref["grads"])) for r in ranks)
+    launched = all(all(r["launches"].get(k, 0) > 0 for k in ("p2g", "g2p", "g2p_derivs"))
+                   and all((r["launches"].get(k, 0) > 0) == bool(r["views"])
+                           for k in ("composite", "composite_bwd")) for r in ranks)
+    flags = not any(r["halo_overflow"] or r["overflow"] for r in ranks)
+    bitwise = all(r["bitwise"] for r in ranks)
+    halo_mode = ref["grid_mode"] == "halo"
+    if halo_mode:
+        log(f"[{tag}] {len(ranks)} rank(s) over {ref['backend']}, slab width "
+            f"{halo.slab_width(HALO_SHAPE['grid'], len(ranks))}, tol {HALO_TOL}, particles per "
+            f"slab {ref['slab_counts']}, bins of {ref['capacity']} (>= 25 % slack)")
+    else:
+        log(f"[{tag}] {len(ranks)} rank(s) over {ref['backend']}, particle shards of "
+            f"{ref['capacity']} ({ref['slab_counts']} scene particles), grid replicated")
+    what = "exchange" if halo_mode else "grid sum"
+    for r in ranks:
+        x, vgx = r["fwd_exchange_per_substep"], r["vg_exchange_per_substep"]
+        log(f"[{tag}] rank {r['rank']} ({r['backend']}, views {r['views']}): "
+            f"{r['ms']:.2f} ms/frame forward+backward ({r['fwd_ms']:.2f} forward; one process "
+            f"{single['ms_per_frame']:.2f} forward+backward), peak {r['peak_gib']:.2f} GiB; "
+            f"{what} per substep: forward {x['bytes'] / 1e6:.3f} MB in {x['calls']:.0f} calls, "
+            f"{x['ms']:.3f} ms host incl. staging; forward+backward {vgx['bytes'] / 1e6:.3f} MB "
+            f"in {vgx['calls']:.0f} calls, {vgx['ms']:.3f} ms; launches {r['launches']}")
+    pf = ref["profile_forward"]
+    if pf:
+        log(f"[{tag}] rank 0's forward, its own kernels: wall {pf['wall_ms']:.2f} ms, "
+            f"device busy {pf['busy_ms']:.2f} ms (idle share {pf['idle_share']:.3f})")
+    log(f"[{tag}] vs one process: loss {float(ref['loss']):.6f} rel gap {rel:.2e} "
+        f"(bound 1e-4), gradient scaled max error {max(errs):.2e} over {len(errs)} leaves "
+        f"(bound {GRAD_TOL:.0e}); ranks equal {same}; reruns bitwise {bitwise}; "
+        f"K1-K3 on every rank and K4/K5 where views {launched}; no overflow {flags}")
+    return dict(loss_rel_gap=rel, grad_errs=errs, ranks_equal=same, bitwise=bitwise,
+                launched=launched, no_overflow=flags, single_ms_per_frame=single["ms_per_frame"],
+                ranks=[{k: v for k, v in r.items() if k not in ("grads", "loss")}
+                       | {"loss": float(r["loss"])} for r in ranks],
+                ok=rel <= 1e-4 and max(errs) <= GRAD_TOL and same and bitwise
+                and launched and flags)
+
+
 def halo_phase(report) -> bool:
     """Phase 17: scale-out on the card (see the module docstring)."""
-    import chip_smoke as this  # the spawned ranks find halo_rank by module
-    from neuma_tpu_torch.parallel import halo
+    import chip_smoke as this  # the spawned ranks find mesh_rank by module
     from neuma_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
 
     t_phase = time.perf_counter()
     smi = nvidia_smi()
     out = {"nvidia_smi": smi, "shape": HALO_SHAPE, "spread": HALO_SPREAD}
-    scene, v0, gt = halo_scene("cuda")
-    c = scene.constants
+    scene, _, _ = halo_scene("cuda")
 
     # (a) the geom forms of K1-K3, each shard's view
     t0 = time.perf_counter()
@@ -2820,71 +2934,26 @@ def halo_phase(report) -> bool:
     if not views["ok"]:
         log("[halo] FAILED: a geom kernel check")
         return False
-
-    # the single-process replicated path on the card
-    vg, _ = halo_value_and_grad(scene, "cuda")
-    vg(v0, gt)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss_1, aux_1, grads_1 = vg(v0, gt)
-    torch.cuda.synchronize()
-    single_ms = (time.perf_counter() - t0) / gt.shape[0] * 1e3
-    grads_1 = [g.cpu() for g in grads_1]
-    log(f"[halo:single] one process, replicated grid: loss {float(loss_1):.6f} overflow "
-        f"{bool(aux_1['overflow'])} {single_ms:.2f} ms/frame (forward+backward)")
-    out["single"] = dict(loss=float(loss_1), ms_per_frame=single_ms,
-                         overflow=bool(aux_1["overflow"]))
-    del scene, vg
+    del scene
     torch.cuda.empty_cache()
 
-    def gate(ranks, tag):
-        ref = ranks[0]
-        rel = abs(float(ref["loss"]) - float(loss_1)) / abs(float(loss_1))
-        errs = [scaled_err(a, b) for a, b in zip(ref["grads"], grads_1)]
-        same = all(torch.equal(r["loss"], ref["loss"]) and all(
-            torch.equal(a, b) for a, b in zip(r["grads"], ref["grads"])) for r in ranks)
-        launched = all(all(r["launches"].get(k, 0) > 0 for k in ("p2g", "g2p", "g2p_derivs"))
-                       and all((r["launches"].get(k, 0) > 0) == bool(r["views"])
-                               for k in ("composite", "composite_bwd")) for r in ranks)
-        flags = not any(r["halo_overflow"] or r["overflow"] for r in ranks)
-        bitwise = all(r["bitwise"] for r in ranks)
-        log(f"[halo:{tag}] {len(ranks)} rank(s) over {ref['backend']}, slab width "
-            f"{halo.slab_width(c.num_grids, len(ranks))}, tol {HALO_TOL}, particles per slab "
-            f"{ref['slab_counts']}, bins of {ref['capacity']} (>= 25 % slack)")
-        for r in ranks:
-            x = r["fwd_exchange_per_substep"]
-            log(f"[halo:{tag}] rank {r['rank']} ({r['backend']}, views {r['views']}): "
-                f"{r['ms']:.2f} ms/frame forward+backward ({r['fwd_ms']:.2f} forward), "
-                f"peak {r['peak_gib']:.2f} GiB; exchange per substep (forward) "
-                f"{x['bytes'] / 1e6:.3f} MB sent in {x['calls']:.0f} calls, {x['ms']:.3f} ms "
-                f"host incl. staging; launches {r['launches']}")
-        pf = ref["profile_forward"]
-        if pf:
-            log(f"[halo:{tag}] rank 0's forward, its own kernels: wall {pf['wall_ms']:.2f} ms, "
-                f"device busy {pf['busy_ms']:.2f} ms (idle share {pf['idle_share']:.3f})")
-        log(f"[halo:{tag}] vs one process: loss {float(ref['loss']):.6f} rel gap {rel:.2e} "
-            f"(bound 1e-4), gradient scaled max error {max(errs):.2e} over {len(errs)} leaves "
-            f"(bound {GRAD_TOL:.0e}); ranks equal {same}; reruns bitwise {bitwise}; "
-            f"K1-K3 on every rank and K4/K5 where views {launched}; no overflow {flags}")
-        return dict(loss_rel_gap=rel, grad_errs=errs, ranks_equal=same, bitwise=bitwise,
-                    launched=launched, no_overflow=flags,
-                    ranks=[{k: v for k, v in r.items() if k not in ("grads", "loss")}
-                           | {"loss": float(r["loss"])} for r in ranks],
-                    ok=rel <= 1e-4 and max(errs) <= GRAD_TOL and same and bitwise
-                    and launched and flags)
+    # the single-process replicated path on the card
+    single = single_reference()
+    out["single"] = dict(loss=float(single["loss"]), ms_per_frame=single["ms_per_frame"],
+                         overflow=single["overflow"])
 
     # (b) four ranks on the one card (gloo: NCCL refuses two ranks on one card)
     t0 = time.perf_counter()
-    ranks4 = spawn(this.halo_rank, HALO_RANKS, args=("cuda", None, True), device="cuda",
+    ranks4 = spawn(this.mesh_rank, HALO_RANKS, args=("cuda", None, True), device="cuda",
                    backend="gloo")
     log(f"[halo:4] {HALO_RANKS} ranks on one card over gloo (faces staged through pinned "
         f"host buffers): {time.perf_counter() - t0:.1f} s")
-    out["four"] = gate(ranks4, "4")
+    out["four"] = mesh_gate(ranks4, "halo:4")
 
     # (c) NCCL: a world of one through the same code, and two ranks where two cards exist
     t0 = time.perf_counter()
-    ranks1 = spawn(this.halo_rank, 1, device="cuda", backend="nccl")
-    out["nccl1"] = gate(ranks1, "nccl1")
+    ranks1 = spawn(this.mesh_rank, 1, device="cuda", backend="nccl")
+    out["nccl1"] = mesh_gate(ranks1, "halo:nccl1")
     rel41 = abs(float(ranks1[0]["loss"]) - float(ranks4[0]["loss"])) / abs(float(ranks4[0]["loss"]))
     err41 = max(scaled_err(a, b) for a, b in zip(ranks1[0]["grads"], ranks4[0]["grads"]))
     out["nccl1"].update(vs_four=dict(loss_rel_gap=rel41, grad_err=err41))
@@ -2892,7 +2961,8 @@ def halo_phase(report) -> bool:
         f"{err41:.2e} ({time.perf_counter() - t0:.1f} s)")
     ok_nccl = out["nccl1"]["ok"] and rel41 <= 1e-4 and err41 <= GRAD_TOL
     if torch.cuda.device_count() >= 2:
-        out["nccl2"] = gate(spawn(this.halo_rank, 2, device="cuda", backend="nccl"), "nccl2")
+        out["nccl2"] = mesh_gate(spawn(this.mesh_rank, 2, device="cuda", backend="nccl"),
+                                 "halo:nccl2")
         ok_nccl &= out["nccl2"]["ok"]
     else:
         log("nccl multi-rank: not run (1 card)")
@@ -2911,6 +2981,71 @@ def halo_phase(report) -> bool:
     ok = out["four"]["ok"] and ok_nccl and ok_dry
     if not ok:
         log("[halo] FAILED")
+    return ok
+
+
+def replicated_phase(report) -> bool:
+    """Phase 18: the particle-sharded replicated-grid rollout on the card
+    (see the module docstring)."""
+    import chip_smoke as this  # the spawned ranks find mesh_rank by module
+    from neuma_tpu_torch.parallel.dryrun import spawn
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    # (a) K1-K3 against their plain versions on shard 0's payload (its
+    # 7,500 particles on the whole 70^3 grid, as each rank runs them)
+    scene, _, _ = halo_scene("cuda")
+    m = scene.init_x.shape[0] // HALO_RANKS
+    shard = dataclasses.replace(scene, init_x=scene.init_x[:m], statics=type(scene.statics)(
+        **{f: getattr(scene.statics, f)[:m] for f in scene.statics.__dataclass_fields__}))
+    rec = {name: {} for name in KERNELS}
+    ok_k = check_and_time("shard", kernel_inputs(shard, torch.Generator().manual_seed(18)), rec,
+                          composite=False)
+    del scene, shard
+    torch.cuda.empty_cache()
+    # (b) four ranks on the card
+    t_ranks = time.perf_counter()
+    ranks = spawn(this.mesh_rank, HALO_RANKS, args=("cuda", None, False, "replicated"),
+                  device="cuda", backend="gloo")
+    log(f"[replicated:4] {HALO_RANKS} ranks on one card over gloo (grid sums staged through "
+        f"pinned host buffers): {time.perf_counter() - t_ranks:.1f} s")
+    out = {"nvidia_smi": smi, "shape": HALO_SHAPE, "spread": HALO_SPREAD,
+           "shard_kernels": {name: rec[name]["shard"] for name in KERNELS[:3]},
+           "four": mesh_gate(ranks, "replicated:4")}
+    if "halo" in report:  # phase 17's figures, beside these
+        halo_ms = ", ".join(f"{r['ms']:.2f}" for r in report["halo"]["four"]["ranks"])
+        log(f"[replicated:4] beside halo mode (phase 17b): {halo_ms} ms/frame per rank")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[replicated] {smi}; phase {out['seconds']:.1f} s")
+    report["replicated"] = out
+    ok = ok_k and out["four"]["ok"]
+    if not ok:
+        log("[replicated] FAILED")
+    return ok
+
+
+def smoke_e2e_phase(report) -> bool:
+    """Phase 19: ``python -m neuma_tpu_torch.examples.smoke_e2e`` on the
+    card, as a user runs it (see the module docstring)."""
+    t0 = time.perf_counter()
+    work = REPO / "build" / "chip_smoke_e2e"
+    proc = subprocess.run([sys.executable, "-m", "neuma_tpu_torch.examples.smoke_e2e",
+                           "--workdir", str(work)], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    res = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    launches = res.get("launches", {})
+    ok = (proc.returncode == 0 and res.get("ok") is True and res.get("device") == "cuda"
+          and res.get("frames") == 5 and bool(res.get("losses"))
+          and all(np.isfinite(res["losses"]))
+          and all(launches.get(k, 0) > 0 for k in ("composite", "composite_bwd")))
+    out = dict(res, returncode=proc.returncode, seconds=time.perf_counter() - t0, ok=ok)
+    log(f"[smoke_e2e] exit {proc.returncode}: train {res.get('train_s', float('nan')):.1f} s, "
+        f"render {res.get('render_s', float('nan')):.1f} s, {res.get('frames')} frames, losses "
+        f"{res.get('losses')}, launches {launches} ({out['seconds']:.1f} s with start-up)")
+    if not ok:
+        log(f"[smoke_e2e] FAILED: {proc.stderr[-2000:]}")
+    report["smoke_e2e"] = out
     return ok
 
 
@@ -3034,6 +3169,10 @@ def main() -> int:
     ok_view = ok_regist and view_phase(report, REPO / "build" / "chip_smoke_serve", lora)
     # 17. scale-out
     ok_halo = ok_view and halo_phase(report)
+    # 18. the particle-sharded replicated-grid rollout
+    ok_rep = ok_halo and replicated_phase(report)
+    # 19. the port's end-to-end example
+    ok_e2e = ok_rep and smoke_e2e_phase(report)
     report.update(kernels=rec, launches_train_headline=launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "build"
@@ -3042,7 +3181,8 @@ def main() -> int:
     if not ok:
         log("[train] FAILED")
         return 1
-    if not (ok_dense and ok_app and ok_serve and ok_regist and ok_view and ok_halo):
+    if not (ok_dense and ok_app and ok_serve and ok_regist and ok_view and ok_halo and ok_rep
+            and ok_e2e):
         return 1
 
     sources = {
@@ -3065,6 +3205,9 @@ def main() -> int:
             "launches_regist": report["regist"]["launches"].get(name, 0),
             "launches_view": report["view"]["launches"].get(name, 0),
             "launches_halo_rank0": report["halo"]["four"]["ranks"][0]["launches"].get(name, 0),
+            "launches_replicated_rank0":
+                report["replicated"]["four"]["ranks"][0]["launches"].get(name, 0),
+            "launches_smoke_e2e": report["smoke_e2e"]["launches"].get(name, 0),
             "check": "pass", "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

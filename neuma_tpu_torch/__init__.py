@@ -12,9 +12,13 @@ elasticity MLP -> MPM step (slab branch through the P2G and G2P kernels,
 dense branch for small grids) -> plasticity MLP -> binding -> Particle-GS
 rasterizer (tile-composite kernels)), its BPTT backward, both trainers,
 every CLI of ``apps/`` (training, rendering, inference, registration,
-evaluation, the viewer) with the modules they reach, and the alternative
-backends of ``p2g`` and of the rasterizer. Scale-out (``parallel/``
-beyond ``distributed.py``'s process setup) is not ported.
+evaluation, the viewer) with the modules they reach, the alternative
+backends of ``p2g`` and of the rasterizer, the end-to-end example
+(``examples/smoke_e2e.py``), and scale-out over ``torch.distributed``
+(``parallel/``): the rollout over a mesh with the halo-exchange grid
+(``grid_mode="halo"``) or with particle shards on a replicated grid
+(``grid_mode="replicated"``, the differentiable sharded step), and the
+multi-rank dry run. Not ported yet: ``RasterConfig.tile_sharding``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without an explicit CPU request they raise.

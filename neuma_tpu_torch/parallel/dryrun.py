@@ -2,7 +2,7 @@
 
 Counterpart of ``__graft_entry__.dryrun_multichip`` in the JAX package
 (``neuma_tpu/`` has no module of its own for it), without its
-tile-sharded render:
+tile-sharded render (``RasterConfig.tile_sharding`` is not ported yet):
 
     python -m neuma_tpu_torch.parallel.dryrun --ranks 4 [--device cpu] [--backend gloo]
 

@@ -8,31 +8,28 @@ particles into per-block sums, the sums are added over the axis in rank
 order (the all-reduce that XLA inserts in the JAX package), and every
 rank runs the slab chain's halo add, ``grid_op_slabs`` and K2 on its own
 particles (on a grid of at most 24 cells, the dense grid is summed
-instead). The step here is the forward only: the training path scales
-out through the halo-exchange grid (``parallel/halo.py``). The JAX
-package's ``tile_sharding`` (its jnp rasterizer's tiles over a mesh
-axis) is not ported.
+instead). The step is differentiable: its adjoint adds the ranks' shares
+of the grid cotangent once and runs the rest on the shard. The grounding
+rollout's ``grid_mode="replicated"`` over a mesh runs it
+(``train/grounding.py``). The JAX package's ``tile_sharding`` (its jnp
+rasterizer's tiles over a mesh axis) is not ported yet.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
 
 from ..core.types import MPMConstants, ParticleState, Statics
-from ..sim.blocked import _dense_forward, _slab_grid
-from ..sim.mpm import _g2p_tail, _p2g_terms, g2p_core, grid_op, grid_op_slabs
-from ..sim.p2g_kernel import (
-    CHUNK,
-    _num_blocks,
-    _resolve_layout,
-    build_step_layouts,
-    gather_from_slabs,
-    halo_add_slabs,
-    pack_payload,
-    run_p2g_fwd,
-)
+from ..sim.mpm import mpm_step_diff
 from .distributed import Mesh, global_mesh
+
+grid_sum_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_grid_sum_stats() -> None:
+    grid_sum_stats.update(calls=0, bytes=0, seconds=0.0)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "dp") -> Mesh:
@@ -101,31 +98,34 @@ def replicate(tree, mesh: Mesh):
                          else getattr(tree, f) for f in tree.__dataclass_fields__})
 
 
+def particle_grid_sum(mesh: Mesh, axis: str = "dp"):
+    """The grid reduction of a particle shard, ``t -> mesh.all_sum(t,
+    axis)`` (rank order): the step applies it to K1's per-block sums (or
+    the dense grid) in the forward and to the grid cotangent in the
+    backward. Each call adds its tensor's bytes and its host seconds
+    (staging and waiting on the peers included) to ``grid_sum_stats``."""
+
+    def grid_sum(t: torch.Tensor) -> torch.Tensor:
+        t0 = time.perf_counter()
+        out = mesh.all_sum(t, axis)
+        grid_sum_stats["calls"] += 1
+        grid_sum_stats["bytes"] += t.numel() * t.element_size()
+        grid_sum_stats["seconds"] += time.perf_counter() - t0
+        return out
+
+    return grid_sum
+
+
 def make_sharded_sim_step(constants: MPMConstants, mesh: Mesh, axis: str = "dp"):
     """Returns ``step(statics, state, stress) -> new_state`` on this rank's
-    particle shard: K1 on the shard, the per-block sums added over the
-    axis in rank order, then the halo add, ``grid_op_slabs`` and K2 on the
-    shard. Forward only (no autograd graph)."""
-    nbs, NB = _num_blocks(constants)
+    particle shard: ``mpm_step_diff`` with ``particle_grid_sum``, so K1's
+    per-block sums are added over the axis in rank order before the halo
+    add, ``grid_op_slabs`` and K2 run on the shard (at 24 cells or fewer
+    the dense grid is summed). Differentiable: the backward adds the
+    ranks' grid cotangents once and runs K3 in both roles on the shard."""
+    grid_sum = particle_grid_sum(mesh, axis)
 
-    @torch.no_grad()
     def step(statics: Statics, state: ParticleState, stress: torch.Tensor) -> ParticleState:
-        mass, b, affine = _p2g_terms(constants, statics, state, stress)
-        if not _slab_grid(constants):  # the dense grid, summed over the axis
-            grid_m, grid_mv = _dense_forward(constants, state.x, mass, b, affine)
-            grid = mesh.all_sum(torch.cat([grid_mv, grid_m[:, None]], 1), axis)
-            new_v, new_C = g2p_core(constants, state.x, grid_op(constants, grid[:, 3], grid[:, :3]))
-            return _g2p_tail(constants, statics, state, new_v, new_C)
-        sort = build_step_layouts(constants, state.x)
-        layout, bsort = _resolve_layout(constants, state.x, CHUNK, sort)
-        payload = pack_payload(constants, layout, bsort.fx, bsort.loc, mass, b, affine)
-        pb = mesh.all_sum(run_p2g_fwd(payload, layout.c2b, NB), axis)
-        slabs_v = grid_op_slabs(constants, halo_add_slabs(pb, nbs), nbs)
-        zeros3 = torch.zeros_like(state.x)
-        zeros33 = torch.zeros(state.x.shape + (3,), dtype=state.x.dtype, device=state.x.device)
-        _, _, new_v, dA = gather_from_slabs(constants, state.x, slabs_v, None, zeros3, zeros33,
-                                            derivs=False, sort=sort)
-        return _g2p_tail(constants, statics, state, new_v,
-                         4.0 * constants.inv_dx * constants.inv_dx * dA)
+        return mpm_step_diff(constants, statics, state, stress, grid_sum=grid_sum)
 
     return step

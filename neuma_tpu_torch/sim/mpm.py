@@ -449,13 +449,13 @@ def advect_extra(
     return g2p(constants, statics_extra, state_extra, grid_v)
 
 
-def _step_fwd_slab(constants, statics, state, stress, sort):
+def _step_fwd_slab(constants, statics, state, stress, sort, grid_sum=None):
     """P2G (K1) -> grid op -> G2P (K2) -> tail. Returns
     (out_state, slabs_mmv, new_v, new_C)."""
     nb = _cdiv(constants.num_grids, BLOCK)
     nbs = (nb, nb, nb)
     mass, b, affine = _p2g_terms(constants, statics, state, stress)
-    slabs_mmv = p2g_slab_scatter(constants, state.x, mass, b, affine, sort)
+    slabs_mmv = p2g_slab_scatter(constants, state.x, mass, b, affine, sort, grid_sum)
     slabs_v = grid_op_slabs(constants, slabs_mmv, nbs)
     kappa = 4.0 * constants.inv_dx * constants.inv_dx
     zeros3 = torch.zeros_like(state.x)
@@ -474,16 +474,22 @@ def _step_sort(constants: MPMConstants, x: torch.Tensor):
     return build_step_layouts(constants, x) if _slab_grid(constants) else None
 
 
-def _step_fwd(constants, statics, state, stress, sort):
+def _step_fwd(constants, statics, state, stress, sort, grid_sum=None):
     """The step on its branch. Returns (out_state, grid residuals, new_v,
     new_C): the residuals are (slabs_mmv,) on the slab branch and
     (grid_m, grid_mv) on the dense one (dense scatter -> grid op -> G2P
-    -> tail)."""
+    -> tail). ``grid_sum`` (None in one process) adds this rank's grid
+    partials over the particle axis: K1's per-block sums before the halo
+    add, or the dense grid."""
     if _slab_grid(constants):
-        out, slabs_mmv, new_v, new_C = _step_fwd_slab(constants, statics, state, stress, sort)
+        out, slabs_mmv, new_v, new_C = _step_fwd_slab(constants, statics, state, stress, sort,
+                                                      grid_sum)
         return out, (slabs_mmv,), new_v, new_C
     mass, b, affine = _p2g_terms(constants, statics, state, stress)
     grid_m, grid_mv = _dense_forward(constants, state.x, mass, b, affine)
+    if grid_sum is not None:  # one (cells, 4) sum
+        grid = grid_sum(torch.cat([grid_mv, grid_m[:, None]], 1))
+        grid_m, grid_mv = grid[:, 3], grid[:, :3]
     new_v, new_C = g2p_core(constants, state.x, grid_op(constants, grid_m, grid_mv))
     out = _g2p_tail(constants, statics, state, new_v, new_C)
     return out, (grid_m, grid_mv), new_v, new_C
@@ -520,14 +526,15 @@ def _state_tuple(s: ParticleState):
     return (s.x, s.v, s.C, s.F)
 
 
-def _grid_bwd_slab(constants, x, sort, slabs_mmv, mass, b, affine, d_new_v, A2):
+def _grid_bwd_slab(constants, x, sort, slabs_mmv, mass, b, affine, d_new_v, A2, grid_sum=None):
     """The slab branch's grid stages of the step adjoint: K1 as the exact
-    transpose of the slab gather (tap scatter per slab + halo merge), the
-    ``grid_op_slabs`` vjp, then K3 twice (the P2G scatter adjoint and the
-    G2P position adjoint). Returns (d_x_s, dgm, db, dA, d_x_g2p)."""
+    transpose of the slab gather (tap scatter per slab, ``grid_sum`` over
+    the ranks, halo merge), the ``grid_op_slabs`` vjp, then K3 twice (the
+    P2G scatter adjoint and the G2P position adjoint). Returns (d_x_s,
+    dgm, db, dA, d_x_g2p)."""
     nb = _cdiv(constants.num_grids, BLOCK)
     nbs = (nb, nb, nb)
-    d_slabs_v = p2g_slab_scatter(constants, x, None, d_new_v, A2, sort)
+    d_slabs_v = p2g_slab_scatter(constants, x, None, d_new_v, A2, sort, grid_sum)
     (slabs_v,), (d_slabs_mmv,), _ = _vjp(
         lambda s_: grid_op_slabs(constants, s_, nbs), (slabs_mmv,), (d_slabs_v,)
     )
@@ -540,20 +547,26 @@ def _grid_bwd_slab(constants, x, sort, slabs_mmv, mass, b, affine, d_new_v, A2):
     return d_x_s, dgm, db, dA, d_x_g2p
 
 
-def _grid_bwd_dense(constants, x, grid_m, grid_mv, mass, b, affine, d_new_v, A2):
+def _grid_bwd_dense(constants, x, grid_m, grid_mv, mass, b, affine, d_new_v, A2, grid_sum=None):
     """The dense branch's grid stages: the dense scatter as the exact
-    transpose of the G2P gather, the ``grid_op`` vjp, then the two
-    tap-space gathers. Returns (d_x_s, dgm, db, dA, d_x_g2p)."""
+    transpose of the G2P gather (summed by ``grid_sum`` over the ranks),
+    the ``grid_op`` vjp, then the two tap-space gathers. Returns (d_x_s,
+    dgm, db, dA, d_x_g2p)."""
     _, d_grid_v = _dense_forward(constants, x, None, d_new_v, A2)
+    if grid_sum is not None:
+        d_grid_v = grid_sum(d_grid_v)
     (grid_v,), (d_m, d_mv), _ = _vjp(
         lambda m_, mv_: grid_op(constants, m_, mv_), (grid_m, grid_mv), (d_grid_v,)
     )
     return _apic_bwd_dual_impl(constants, x, mass, b, affine, d_m, d_mv, d_new_v, A2, grid_v)
 
 
-def _step_bwd(constants, statics, state, stress, sort, grid_res, new_v, new_C, g):
+def _step_bwd(constants, statics, state, stress, sort, grid_res, new_v, new_C, g, grid_sum=None):
     """Direct adjoint of ``_step_fwd`` for the output cotangent ``g`` (a
-    ``ParticleState``), on the branch ``_step_fwd`` took. Returns the
+    ``ParticleState``), on the branch ``_step_fwd`` took. With
+    ``grid_sum`` the ranks' shares of the grid cotangent are added (the
+    one sum of the adjoint); the grid-op vjp then runs on the replicated
+    sum and the tap gathers on this rank's particles. Returns the
     scrubbed ``(d_state, d_stress)``."""
 
     def tail(x, v, C, F, v_, C_):
@@ -566,10 +579,10 @@ def _step_bwd(constants, statics, state, stress, sort, grid_res, new_v, new_C, g
     mass, b, affine = _p2g_terms(constants, statics, state, stress)
     if _slab_grid(constants):
         d_x_s, dgm, db, dA, d_x_g2p = _grid_bwd_slab(
-            constants, state.x, sort, grid_res[0], mass, b, affine, d_new_v, A2)
+            constants, state.x, sort, grid_res[0], mass, b, affine, d_new_v, A2, grid_sum)
     else:
         d_x_s, dgm, db, dA, d_x_g2p = _grid_bwd_dense(
-            constants, state.x, *grid_res, mass, b, affine, d_new_v, A2)
+            constants, state.x, *grid_res, mass, b, affine, d_new_v, A2, grid_sum)
 
     def prep(x, v, C, F, sr):
         return _p2g_terms(constants, statics, ParticleState(x, v, C, F), sr)
@@ -604,22 +617,23 @@ class _MPMStepDiff(torch.autograd.Function):
     """``mpm_step`` whose backward is ``_step_bwd``."""
 
     @staticmethod
-    def forward(ctx, constants, statics, sort, x, v, C, F, stress):
+    def forward(ctx, constants, statics, sort, grid_sum, x, v, C, F, stress):
         state = ParticleState(x, v, C, F)
-        out, grid_res, new_v, new_C = _step_fwd(constants, statics, state, stress, sort)
+        out, grid_res, new_v, new_C = _step_fwd(constants, statics, state, stress, sort,
+                                                grid_sum)
         ctx.save_for_backward(x, v, C, F, stress, new_v, new_C, *grid_res)
-        ctx.step = (constants, statics, sort)
+        ctx.step = (constants, statics, sort, grid_sum)
         return _state_tuple(out)
 
     @staticmethod
     def backward(ctx, gx, gv, gC, gF):
         x, v, C, F, stress, new_v, new_C, *grid_res = ctx.saved_tensors
-        constants, statics, sort = ctx.step
+        constants, statics, sort, grid_sum = ctx.step
         d_state, d_stress = _step_bwd(
             constants, statics, ParticleState(x, v, C, F), stress, sort, grid_res,
-            new_v, new_C, ParticleState(gx, gv, gC, gF),
+            new_v, new_C, ParticleState(gx, gv, gC, gF), grid_sum,
         )
-        return (None, None, None, *_state_tuple(d_state), d_stress)
+        return (None, None, None, None, *_state_tuple(d_state), d_stress)
 
 
 def mpm_step_diff(
@@ -628,13 +642,18 @@ def mpm_step_diff(
     state: ParticleState,
     stress: torch.Tensor,
     sort=None,
+    grid_sum: Optional[Callable] = None,
 ) -> ParticleState:
     """``mpm_step`` with the reference's backward: the direct piece
     adjoint of ``_step_bwd`` with every outgoing cotangent
-    NaN/Inf-scrubbed. ``sort`` is not differentiated."""
+    NaN/Inf-scrubbed. ``sort`` is not differentiated. ``grid_sum`` (for
+    a particle shard on a mesh: ``parallel.sharding.particle_grid_sum``)
+    adds the ranks' grid partials in the forward and their grid
+    cotangents in the backward."""
     if sort is None:
         sort = _step_sort(constants, state.x)
-    return ParticleState(*_MPMStepDiff.apply(constants, statics, sort, *_state_tuple(state), stress))
+    return ParticleState(*_MPMStepDiff.apply(constants, statics, sort, grid_sum,
+                                             *_state_tuple(state), stress))
 
 
 def trainable_params(material) -> list:
@@ -651,10 +670,11 @@ class _PackedSubstep(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, step, sort, x, v, C, F, *params):
-        constants, statics, elasticity, plasticity = step
+        constants, statics, elasticity, plasticity, grid_sum = step
         state = ParticleState(x, v, C, F)
         stress = elasticity(F)
-        out, grid_res, new_v, new_C = _step_fwd(constants, statics, state, stress, sort)
+        out, grid_res, new_v, new_C = _step_fwd(constants, statics, state, stress, sort,
+                                                grid_sum)
         f2 = out.F
         ctx.save_for_backward(x, v, C, F, stress, new_v, new_C, f2, *grid_res)
         ctx.step, ctx.sort = step, sort
@@ -663,32 +683,35 @@ class _PackedSubstep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gx, gv, gC, gF):
         x, v, C, F, stress, new_v, new_C, f2, *grid_res = ctx.saved_tensors
-        constants, statics, elasticity, plasticity = ctx.step
+        constants, statics, elasticity, plasticity, grid_sum = ctx.step
         e_params, p_params = trainable_params(elasticity), trainable_params(plasticity)
         # Each material's vjp from a recompute of its forward.
         _, (d_f2,), d_pp = _vjp(plasticity, (f2,), (gF,), p_params)
         state = ParticleState(x, v, C, F)
         d_s, d_stress = _step_bwd(
             constants, statics, state, stress, ctx.sort, grid_res, new_v, new_C,
-            ParticleState(gx, gv, gC, d_f2),
+            ParticleState(gx, gv, gC, d_f2), grid_sum,
         )
         _, (d_f_e,), d_pe = _vjp(elasticity, (F,), (d_stress,), e_params)
         return (None, None, d_s.x, d_s.v, d_s.C, d_s.F + d_f_e, *d_pe, *d_pp)
 
 
-def make_packed_substep(constants: MPMConstants, statics: Statics, elasticity, plasticity):
+def make_packed_substep(constants: MPMConstants, statics: Statics, elasticity, plasticity,
+                        grid_sum: Optional[Callable] = None):
     """One grounding substep (elasticity net -> MPM step -> plasticity
     net) as a single ``torch.autograd.Function``. ``elasticity`` and
     ``plasticity`` are callables on F; where they are ``nn.Module``s,
     their parameters that require grad are the Function's inputs. The
     substep takes the state and its step layouts (None builds them where
-    the branch needs them)."""
+    the branch needs them). On a particle shard, ``statics`` is the
+    shard's and ``grid_sum`` adds the ranks' grid partials and grid
+    cotangents (``mpm_step_diff``)."""
 
     def substep(s: ParticleState, layouts) -> ParticleState:
         if layouts is None:
             layouts = _step_sort(constants, s.x)
         e_params, p_params = trainable_params(elasticity), trainable_params(plasticity)
-        step = (constants, statics, elasticity, plasticity)
+        step = (constants, statics, elasticity, plasticity, grid_sum)
         out = _PackedSubstep.apply(step, layouts, *_state_tuple(s), *e_params, *p_params)
         return ParticleState(*out)
 

@@ -629,13 +629,18 @@ def p2g_slab_scatter(
     b: torch.Tensor,
     A: torch.Tensor,
     sort=None,
+    grid_sum=None,
 ) -> torch.Tensor:
     """Blocked APIC scatter (K1) straight to halo-complete slabs
-    (NB, 4, S, S*S); channel 3 carries mass (zero when ``gm`` is None)."""
+    (NB, 4, S, S*S); channel 3 carries mass (zero when ``gm`` is None).
+    ``grid_sum`` (a particle shard on a mesh) adds K1's per-block sums
+    over the ranks before the halo add."""
     nbs, NB = _num_blocks(constants)
     layout, bsort = _resolve_layout(constants, x, CHUNK, sort)
     payload = pack_payload(constants, layout, bsort.fx, bsort.loc, gm, b, A)
     pb = run_p2g_fwd(payload, layout.c2b, NB)
+    if grid_sum is not None:
+        pb = grid_sum(pb)
     return halo_add_slabs(pb, nbs)
 
 

@@ -21,20 +21,29 @@ The material weights live in the scene's material modules; the trainers
 update their LoRA leaves in place. The ground-truth images are an
 argument of the loss and of the trainers, not part of the scene.
 
-With ``grid_mode="halo"`` the rollout runs over ``scene.mesh`` (a
-``parallel.distributed.Mesh``, one rank per shard): once per frame every
-rank partitions the replicated particles into slab bins, steps its own
-bin through the substeps with ``parallel/halo.py``'s bins step (drift
-tolerance 2 cells; the materials on the bin, the padding slots' stress
-zeroed), and the bins are gathered back by an all-gather whose backward
-is a reduce-scatter. Each view is rendered by exactly one rank (view v
-by rank v mod world). The returned loss has the value of the global
-loss (the ranks' partial losses added in rank order) and the gradient of
-this rank's partial loss, so the ranks' gradients sum to the
+With ``scene.mesh`` (a ``parallel.distributed.Mesh``, one rank per
+shard) the rollout runs over a world. With ``grid_mode="halo"`` once per
+frame every rank partitions the replicated particles into slab bins,
+steps its own bin through the substeps with ``parallel/halo.py``'s bins
+step (drift tolerance 2 cells; the materials on the bin, the padding
+slots' stress zeroed), and the bins are gathered back by an all-gather
+whose backward is a reduce-scatter. With ``grid_mode="replicated"`` (the
+default) and a ``particle_axis`` the particles are padded to a multiple
+of that axis (disabled, F = I) and each rank steps its contiguous shard
+through the packed substeps with the grid summed over the axis
+(``parallel.sharding.particle_grid_sum``: K1's per-block sums forward,
+the grid cotangent backward), keeping one block sort per shard; the
+shards are gathered back once per frame in the same way. Without a
+particle axis every rank runs the whole sim. Each view is rendered by
+exactly one rank (``rank_views``). The returned loss has the value of
+the global loss (the ranks' partial losses added in rank order) and the
+gradient of this rank's partial loss, so the ranks' gradients sum to the
 single-process gradient; the trainers add them over the world before
 clipping. A rank that renders no view still runs the backward through
-the sim's collectives. With a ``vp`` axis the sim is replicated along
-it and each copy's backward carries its own rank's views.
+the sim's collectives; the ``'frame'`` remat checkpoints the sim alone,
+with early stop off, so every rank reruns its collectives in one order.
+With a ``vp`` axis the sim is replicated along it and each copy's
+backward carries its own rank's views.
 
 ``build_scene`` makes the scene of ``bench.py``'s recipe (seed-0 points in
 [0.4, 0.6]^3, InvariantFull materials with LoRA, SH Gaussians on the
@@ -65,6 +74,12 @@ from ..parallel.halo import (
     partition_particles,
     shard_of,
     unpartition,
+)
+from ..parallel.sharding import (
+    pad_scene_particles,
+    pad_to_multiple,
+    particle_grid_sum,
+    shard_particles,
 )
 from ..render.binding import (
     BindingTable,
@@ -112,14 +127,17 @@ class GroundingScene:
     raster_cfg: RasterConfig = dataclasses.field(default_factory=RasterConfig)
     exclude_frames: Sequence[int] = ()
     # The world the rollout runs over (``parallel.distributed.Mesh``): the
-    # halo grid's slabs go along ``particle_axis`` (default "dp"), and the
-    # views are split over ``view_axis`` (the sim replicated along it), or
-    # round-robin over the world without it (``rank_views``).
+    # particles go along ``particle_axis`` (halo mode: the grid's slabs,
+    # default "dp"; replicated mode: particle shards, none without it),
+    # and the views are split over ``view_axis`` (the sim replicated along
+    # it), or round-robin over the world without it (``rank_views``).
     mesh: Optional[object] = None
     particle_axis: Optional[str] = None
     view_axis: Optional[str] = None
-    # 'replicated' (one process) or 'halo' (slab-decomposed grid with the
-    # ring exchange of parallel/halo.py; requires ``mesh``)
+    # 'replicated' (the whole grid on every rank; over a mesh the
+    # particles are sharded and the grid summed) or 'halo' (slab-
+    # decomposed grid with the ring exchange of parallel/halo.py;
+    # requires ``mesh``)
     grid_mode: str = "replicated"
     # per-shard particle-bin capacity for halo mode (None: N, always safe)
     halo_capacity: Optional[int] = None
@@ -194,18 +212,16 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
     move there in place). ``init_v`` is (3,) or (N, 3);
     ``frame_weights`` (frames,); ``gt_images`` (frames, views, 3, H, W).
     ``aux`` holds the device bools ``overflow`` and ``halo_overflow``
-    (ORed over the world in halo mode). The loss is differentiable with
+    (ORed over the world on a mesh). The loss is differentiable with
     respect to ``init_v`` and the materials' trainable (LoRA) parameters."""
     device = resolve_device(device)
     mesh = scene.mesh
-    if scene.grid_mode == "halo":
+    halo = scene.grid_mode == "halo"
+    if halo:
         if mesh is None:
             raise ValueError("grid_mode='halo' requires scene.mesh")
     elif scene.grid_mode != "replicated":
         raise ValueError(f"unknown grid_mode: {scene.grid_mode!r}")
-    elif mesh is not None:
-        raise ValueError("grid_mode='replicated' over a mesh (the particle-sharded "
-                         "replicated-grid rollout) is not ported: use grid_mode='halo'")
     scene = scene.to(device)
     constants = scene.constants
     n_particles = scene.init_x.shape[0]
@@ -217,19 +233,32 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         shs = scene.gaussians.get_features
     sh_degree = scene.gaussians.sh_degree
     k_xyz0 = scene.gaussians.xyz.detach()
-    substep = make_packed_substep(
-        constants, scene.statics, scene.elasticity, scene.plasticity
-    )
     views = list(range(len(scene.cameras)))
+    # The axis the particles are split along: the halo grid's slabs, or
+    # the replicated grid's particle shards (none: each rank runs the sim).
+    sim_axis = (scene.particle_axis or "dp") if halo else scene.particle_axis
+    sharded = mesh is not None and not halo and sim_axis is not None
+    statics, x0 = scene.statics, scene.init_x
+    grid_sum = None
     if mesh is not None:  # each view on one rank
-        halo_axis = scene.particle_axis or "dp"
-        if scene.view_axis == halo_axis:
-            raise ValueError(f"view_axis {halo_axis!r} is the halo grid's axis: the sim "
-                             "must be replicated along the view axis")
+        if scene.view_axis is not None and scene.view_axis == sim_axis:
+            raise ValueError(f"view_axis {sim_axis!r} is the particle axis: the sim must be "
+                             "replicated along the view axis")
         views = rank_views(len(views), mesh, scene.view_axis)
-        halo_step = make_halo_bins_step(constants, mesh, halo_axis, tol=2)
-        shard, n_shards = mesh.coord(halo_axis), mesh.shape[halo_axis]
+    if halo or sharded:
+        n_shards = mesh.shape[sim_axis]
+    if halo:
+        halo_step = make_halo_bins_step(constants, mesh, sim_axis, tol=2)
+        shard = mesh.coord(sim_axis)
         capacity = scene.halo_capacity or n_particles
+    if sharded:  # padded particles are disabled, with F = I
+        padded, statics, _ = pad_scene_particles(
+            ParticleState.initial(x0, torch.zeros_like(x0)), statics, n_shards)
+        x0 = padded.x
+        statics = shard_particles(statics, mesh, sim_axis)
+        grid_sum = particle_grid_sum(mesh, sim_axis)
+    substep = make_packed_substep(constants, statics, scene.elasticity, scene.plasticity,
+                                  grid_sum=grid_sum)
 
     def render_one(cam, means3d, cov_def):
         if scene.force_mask_data:
@@ -244,42 +273,61 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         return img, aux["overflow"]
 
     def render_frame(state, de_x_prev, g_prev, gt_frame):
-        de_x = denormalize_points(state.x, scene.size, scene.center)
+        # the binding reads the scene's particles (no padding)
+        x, F = state.x[:n_particles], state.F[:n_particles]
+        de_x = denormalize_points(x, scene.size, scene.center)
         means3d = apply_binding_xyz(table, de_x, de_x_prev, g_prev)
         if not views:
             zero = torch.zeros((), device=device)
             return de_x, means3d, zero, zero.bool()
         # stop-grad covariance path (reference)
-        cov_def = deform_cov_by_F(cov0, apply_binding_F(table, state.F.detach()))
+        cov_def = deform_cov_by_F(cov0, apply_binding_F(table, F.detach()))
         out = [render_one(v, means3d, cov_def) for v in views]
         imgs = torch.stack([o[0] for o in out])
         overflow = torch.stack([o[1] for o in out]).any()
         frame_loss = pixel_loss(imgs, gt_frame[views]) * len(views)
         return de_x, means3d, frame_loss, overflow
 
-    def frame_body(state, layouts, de_x_prev, g_prev, gt_frame):
+    def substeps(state, layouts):
         for _ in range(scene.substeps):
             if layouts is not None:  # the slab branch's block sort, amortized
                 layouts, _ = refresh_step_layouts(constants, state.x, layouts)
             state = substep(state, layouts)
+        return state, layouts
+
+    def frame_body(state, layouts, de_x_prev, g_prev, gt_frame):
+        state, layouts = substeps(state, layouts)
         return (state, layouts) + render_frame(state, de_x_prev, g_prev, gt_frame)
 
-    def halo_sim(x, v, C, F):
+    def halo_sim(x, v, C, F, layouts):
         """One frame's substeps in bins space: partition once, step this
         rank's bin, gather the bins back. Returns the state and the
         frame's halo overflow (bin capacity or this rank's margin)."""
         state = ParticleState(x, v, C, F)
         part = partition_particles(constants, state, scene.statics, n_shards, capacity)
-        bins, statics, valid = shard_of(part, shard)
+        bins, bin_statics, valid = shard_of(part, shard)
         margin = torch.zeros((), dtype=torch.bool, device=device)
         for _ in range(scene.substeps):
             stress = torch.where(valid[:, None, None], scene.elasticity(bins.F), 0.0)
-            bins, bad = halo_step(statics, bins, stress)
+            bins, bad = halo_step(bin_statics, bins, stress)
             bins = dataclasses.replace(bins, F=scene.plasticity(bins.F))
             margin = margin | bad
-        gathered = gather_bins(mesh, halo_axis, bins)
+        gathered = gather_bins(mesh, sim_axis, bins)
         out = unpartition(dataclasses.replace(part, state=gathered), n_particles, state)
-        return out.x, out.v, out.C, out.F, part.overflow | margin
+        return out.x, out.v, out.C, out.F, None, part.overflow | margin
+
+    def sharded_sim(x, v, C, F, layouts):
+        """One frame's substeps on this rank's particle shard (the grid
+        summed over the axis in each step), then every shard gathered back:
+        the carried state is the whole (padded) state on every rank."""
+        state, layouts = substeps(shard_particles(ParticleState(x, v, C, F), mesh, sim_axis),
+                                  layouts)
+        full = gather_bins(mesh, sim_axis, state)
+        flat = lambda t: t.reshape((-1,) + t.shape[2:])
+        return flat(full.x), flat(full.v), flat(full.C), flat(full.F), layouts, None
+
+    # the sim's collectives run in a checkpoint of the sim alone
+    mesh_sim = halo_sim if halo else sharded_sim if sharded else None
 
     def loss_fn(init_v, frame_weights, gt_images):
         init_v = torch.as_tensor(init_v, dtype=torch.float32, device=device)
@@ -288,22 +336,27 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         n_frames = gt_images.shape[0]
         remat = _remat_policy(scene, n_frames) == "frame" and torch.is_grad_enabled()
         v0 = init_v.reshape(-1, 3).expand(n_particles, 3).contiguous()
-        state = ParticleState.initial(scene.init_x, v0)
+        if sharded:
+            v0, _ = pad_to_multiple(v0, n_shards)
+        state = ParticleState.initial(x0, v0)
         de_x_prev = denormalize_points(scene.init_x, scene.size, scene.center)
         g_prev = k_xyz0
-        halo = scene.grid_mode == "halo"
-        layouts = None if halo else _step_sort(constants, scene.init_x)  # None on a dense grid
+        # None on a dense grid and in halo mode
+        layouts = (None if halo else
+                   _step_sort(constants, shard_particles(x0, mesh, sim_axis) if sharded else x0))
         frame_losses, overflows, halo_flags = [], [], []
         for f in range(n_frames):
-            if halo:
-                args = (state.x, state.v, state.C, state.F)
+            if mesh_sim is not None:
+                args = (state.x, state.v, state.C, state.F, layouts)
                 if remat:  # the sim's collectives rerun in the same order on every rank
                     with set_checkpoint_early_stop(False):
-                        *parts, halo_flag = checkpoint(halo_sim, *args, use_reentrant=False)
+                        *parts, layouts, halo_flag = checkpoint(mesh_sim, *args,
+                                                                use_reentrant=False)
                 else:
-                    *parts, halo_flag = halo_sim(*args)
+                    *parts, layouts, halo_flag = mesh_sim(*args)
                 state = ParticleState(*parts)
-                halo_flags.append(halo_flag)
+                if halo_flag is not None:
+                    halo_flags.append(halo_flag)
                 out = render_frame(state, de_x_prev, g_prev, gt_images[f])
             else:
                 args = (state, layouts, de_x_prev, g_prev, gt_images[f])
@@ -494,9 +547,9 @@ def finetune_constitutive(
     the JAX package's file): it is written at every checkpoint epoch when
     ``write_state``, and, when ``resume_state`` and the file exists,
     restored before the first epoch, overriding ``start_epoch`` and the
-    materials' leaves. Over a mesh (halo mode) the gradients are added
-    over the world before the clip, as the JAX package's jitted step
-    does implicitly, and only the primary rank writes the file."""
+    materials' leaves. Over a mesh (either grid mode) the gradients are
+    added over the world before the clip, as the JAX package's jitted
+    step does implicitly, and only the primary rank writes the file."""
     device = resolve_device(device)
     num_epochs = int(cfg["num_epochs"])
     warmup = int(cfg.get("warmup_step", 0))

@@ -1,5 +1,6 @@
 """The port's scale-out on CPU gloo ranks: the halo-exchange grid,
-the particle-sharded step, the halo-mode rollout loss and the dry run.
+the particle-sharded step and its adjoint, the rollout loss in halo mode
+and in the particle-sharded replicated-grid mode, and the dry run.
 
 Each world size is spawned once per module (``parallel.dryrun.spawn``,
 a ``file://`` rendezvous under ``tmp_path``; each rank runs torch on one
@@ -16,9 +17,13 @@ through a 3-step halo rollout within a scaled 2e-4 of the single-process
 step's; the halo-mode rollout loss within rtol 1e-5 of the replicated
 path and its LoRA and ``init_v`` gradients within a scaled 5e-4 (JAX
 ``test_halo_grid_mode_loss_and_grads_match_replicated``'s); the
-particle-sharded step at atol 2e-5, rtol 1e-4.
+particle-sharded step at atol 2e-5, rtol 1e-4, its input cotangents for
+a seeded output cotangent within a scaled 5e-4 of ``mpm_step_diff``'s;
+the replicated-grid rollout over a mesh within the halo mode's bounds of
+one process.
 """
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -73,18 +78,19 @@ def _np(state):
 
 
 STEP_CASES = [(16, "noslip"), (16, "freeslip"), (32, "noslip"), (32, "freeslip")]
+SHARDED_GRIDS = (16, 32)  # the dense branch, the slab branch (K1-K3)
 
 
 def grad_loss(st):
     return (st.x ** 2).sum() + (st.v * st.C[:, 0, 0:1]).sum()
 
 
-def rollout_scene(grid=32, n_views=2):
-    """The halo-mode rollout scene: ``build_tiny_scene`` at ``grid`` with
-    96 particles spread over the box, LoRA r 4 with a non-zero ``lora_b``,
-    2 frames x 2 substeps, non-zero ground truth."""
-    scene, gt = build_tiny_scene(n_particles=96, grid=grid, frames=2, substeps=2, img=32,
-                                 n_views=n_views, spread=0.7)
+def rollout_scene(grid=32, n_views=2, n_particles=96):
+    """The rollout scene of the mesh tests: ``build_tiny_scene`` at
+    ``grid`` with 96 particles spread over the box, LoRA r 4 with a
+    non-zero ``lora_b``, 2 frames x 2 substeps, non-zero ground truth."""
+    scene, gt = build_tiny_scene(n_particles=n_particles, grid=grid, frames=2, substeps=2,
+                                 img=32, n_views=n_views, spread=0.7)
     gen = torch.Generator().manual_seed(2)
     for mat in (scene.elasticity, scene.plasticity):
         mat.init_lora(gen, r=4, alpha=8.0)
@@ -128,7 +134,48 @@ def run_trainers(scene, gt):
         trainable_params(scene.elasticity) + trainable_params(scene.plasticity))]
 
 
+def step_cotangents(n, seed=21):
+    """A seeded output cotangent on (x, v, C, F) of ``n`` particles."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((n, 3), (n, 3), (n, 3, 3), (n, 3, 3))]
+
+
+def step_vjp(step, statics, state, stress, cotangents):
+    """``step``'s new state and the cotangents of (x, v, C, F, stress)
+    for ``cotangents``, as tensors."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (*_state(state), stress)]
+    new = step(statics, ParticleState(*leaves[:4]), leaves[4])
+    grads = torch.autograd.grad(list(_state(new)), leaves, cotangents)
+    return [t.detach() for t in _state(new)], list(grads)
+
+
+def _state(s):
+    return (s.x, s.v, s.C, s.F)
+
+
 # --- what each rank runs --------------------------------------------------------
+
+
+def sharded_step_outputs(arrays_list, mesh):
+    """``make_sharded_sim_step`` on each scene, on this rank's shard: the
+    new state and the input cotangents for ``step_cotangents``, each
+    gathered over the ranks, as numpy."""
+    out = []
+    for a in arrays_list:
+        c, statics, state, stress = torch_scene(a)
+        cts = [shard_particles(torch.from_numpy(t), mesh) for t in step_cotangents(len(a["x"]))]
+        new, grads = step_vjp(make_sharded_sim_step(c, mesh), shard_particles(statics, mesh),
+                              shard_particles(state, mesh), shard_particles(stress, mesh), cts)
+        whole = lambda t: torch.cat(mesh.all_gather(t.contiguous())).numpy()
+        out.append(([whole(t) for t in new], [whole(g) for g in grads]))
+    return out
+
+
+def sharded_step_rank(arrays_list):
+    """A world's sharded steps on the given scenes (``tests/test_torch_halo.py``)."""
+    return sharded_step_outputs(arrays_list, Mesh(("dp",), (dist.get_world_size(),)))
+
 
 
 def halo_step_outputs(arrays_list, mesh, tol=0, capacity=None):
@@ -209,14 +256,9 @@ def rank_checks():
         per_step, _ = step(per_step, stress)
     res["carried"] = (_np(carried), _np(per_step), margins)
 
-    # the particle-sharded step (replicated grid), dense and slab grids
-    res["sharded"] = {}
-    for g in (16, 32):
-        c, statics, state, stress = torch_scene(scene_arrays(n=512, g=g))
-        out = make_sharded_sim_step(c, mesh)(shard_particles(statics, mesh),
-                                             shard_particles(state, mesh),
-                                             shard_particles(stress, mesh))
-        res["sharded"][g] = torch.cat(mesh.all_gather(out.x)).numpy()
+    # the particle-sharded step (replicated grid) and its vjp, dense and slab grids
+    res["sharded"] = dict(zip(SHARDED_GRIDS, sharded_step_outputs(
+        [scene_arrays(n=512, g=g) for g in SHARDED_GRIDS], mesh)))
 
     # the halo-mode rollout loss and its gradients, 2 x 1 or 2 x 2 (there
     # with the view axis first: views 0 and 1 land on ranks 0 and 2)
@@ -228,15 +270,30 @@ def rank_checks():
     res["rollout_rerun"] = rollout_value_and_grad(scene, gt)
     res["views"] = rank_views(2, rmesh, "vp")
 
+    # the replicated-grid rollout over particle shards: the same meshes
+    # (with a vp axis the sim is replicated along it), then one axis
+    # without a view axis on a scene whose 93 particles are padded
+    scene = dataclasses.replace(scene, grid_mode="replicated", halo_capacity=None)
+    res["replicated"] = rollout_value_and_grad(scene, gt)
+    res["replicated_rerun"] = rollout_value_and_grad(scene, gt)
+    res["replicated_remat"] = rollout_value_and_grad(dataclasses.replace(scene, remat="frame"), gt)
+    scene, gt = rollout_scene(n_particles=93)
+    res["replicated_padded"] = rollout_value_and_grad(dataclasses.replace(
+        scene, mesh=mesh, particle_axis="dp"), gt)
+
     res["dryrun"] = dryrun_multichip(world, device="cpu")
     if world == 2:
         # the card script's phase 17 rank, at a small shape on the CPU
         import chip_smoke
 
-        res["chip_rank"] = chip_smoke.halo_rank("cpu", CHIP_SMALL)
-        res["trainers"] = run_trainers(dataclasses.replace(
-            scene, mesh=Mesh(("dp",), (2,)), particle_axis="dp", view_axis=None,
-            grid_mode="halo"), gt)
+        res["chip_rank"] = chip_smoke.mesh_rank("cpu", CHIP_SMALL)
+        res["chip_rank_replicated"] = chip_smoke.mesh_rank("cpu", CHIP_SMALL,
+                                                           grid_mode="replicated")
+        res["trainers"] = {}
+        for mode in ("halo", "replicated"):  # a fresh scene each: the trainers update its LoRA
+            scene, gt = rollout_scene()
+            res["trainers"][mode] = run_trainers(dataclasses.replace(
+                scene, mesh=Mesh(("dp",), (2,)), particle_axis="dp", grid_mode=mode), gt)
     return res
 
 
@@ -245,8 +302,12 @@ def rank_checks():
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
+    """Both worlds, spawned at once (each rank runs one torch thread)."""
     base = tmp_path_factory.mktemp("worlds")
-    return {n: spawn(rank_checks, n, device="cpu", workdir=base) for n in (2, 4)}
+    with ThreadPoolExecutor(2) as pool:
+        futures = {n: pool.submit(spawn, rank_checks, n, device="cpu", workdir=base)
+                   for n in (2, 4)}
+        return {n: f.result() for n, f in futures.items()}
 
 
 def test_initialize_follows_the_device(worlds):
@@ -343,12 +404,33 @@ def test_bins_carried_match_per_step_repartition(worlds, world):
 
 @pytest.mark.parametrize("world", [2, 4])
 def test_sharded_sim_step_matches_single_step(worlds, world):
-    for g in (16, 32):
+    """The new state, gathered, is ``mpm_step``'s on every rank."""
+    for g in SHARDED_GRIDS:
         c, statics, state, stress = torch_scene(scene_arrays(n=512, g=g))
-        ref = mpm_step(c, statics, state, stress).x.numpy()
+        ref = _np(mpm_step(c, statics, state, stress))
         for r in worlds[world]:
-            np.testing.assert_allclose(r["sharded"][g], ref, atol=2e-5, rtol=1e-4,
-                                       err_msg=f"g={g}")
+            for k, out in zip(ref, r["sharded"][g][0]):
+                np.testing.assert_allclose(out, ref[k], atol=2e-5, rtol=1e-4,
+                                           err_msg=f"{k} (g={g})")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("g", SHARDED_GRIDS)
+def test_sharded_sim_step_vjp_matches_single_step(worlds, world, g):
+    """The sharded step's adjoint (the ranks' grid cotangents added once,
+    K3 in both roles on each shard): the cotangents of (x, v, C, F,
+    stress) for a seeded output cotangent, gathered, within a scaled 5e-4
+    of the single-process ``mpm_step_diff``'s (measured: at most 8.6e-7;
+    the new state within 3.9e-6)."""
+    c, statics, state, stress = torch_scene(scene_arrays(n=512, g=g))
+    cts = [torch.from_numpy(t) for t in step_cotangents(512)]
+    _, ref = step_vjp(lambda st, s, sr: mpm_step_diff(c, st, s, sr), statics, state, stress, cts)
+    for r in worlds[world]:
+        for name, out, b in zip(("x", "v", "C", "F", "stress"), r["sharded"][g][1], ref):
+            b = b.numpy()
+            assert np.abs(b).max() > 0
+            scale = np.abs(b).max()
+            np.testing.assert_allclose(out / scale, b / scale, atol=5e-4, err_msg=f"d {name}")
 
 
 @pytest.fixture(scope="module")
@@ -377,6 +459,49 @@ def test_halo_rollout_loss_and_grads_match_replicated(worlds, replicated_rollout
                                                    else [[0], [], [1], []])
 
 
+@pytest.fixture(scope="module")
+def replicated_rollout_padded():
+    return rollout_value_and_grad(*rollout_scene(n_particles=93))
+
+
+def _hold_rollout(out, ref):
+    loss, grads, aux = out
+    ref_loss, ref_grads, ref_aux = ref
+    assert aux == ref_aux == {"overflow": False, "halo_overflow": False}
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    for a, b in zip(grads, ref_grads):
+        scale = max(np.abs(b).max(), 1e-8)
+        np.testing.assert_allclose(a / scale, b / scale, atol=5e-4)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_replicated_rollout_over_a_mesh_matches_one_process(worlds, replicated_rollout, world):
+    """``grid_mode="replicated"`` over the halo test's 2 x 1 and 2 x 2
+    meshes (particles split on dp, views on vp): the loss, every LoRA
+    leaf's and ``init_v``'s gradient summed over the world, no overflow,
+    every rank's loss equal, and a bitwise rerun (measured: loss 9.6e-8
+    relative, gradients 7.9e-8 scaled); likewise with the per-frame remat
+    (the sim's collectives rerun in the backward)."""
+    outs = [r["replicated"] for r in worlds[world]]
+    for r in worlds[world]:
+        _hold_rollout(r["replicated"], replicated_rollout)
+        _hold_rollout(r["replicated_remat"], replicated_rollout)
+        rerun = r["replicated_rerun"]
+        assert rerun[0] == r["replicated"][0]
+        assert all(np.array_equal(a, b) for a, b in zip(rerun[1], r["replicated"][1]))
+    assert len({o[0] for o in outs}) == 1
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_replicated_rollout_pads_the_particles(worlds, replicated_rollout_padded, world):
+    """One particle axis over the world, no view axis (views round-robin,
+    on 4 ranks two render none), 93 particles padded to 94 or 96 with
+    disabled ones: the same loss and summed gradients as one process
+    (measured: 1.0e-7 relative, 7.6e-8 scaled)."""
+    for r in worlds[world]:
+        _hold_rollout(r["replicated_padded"], replicated_rollout_padded)
+
+
 @pytest.mark.parametrize("world,mesh", [(2, (2, 1)), (4, (2, 2))])
 def test_dryrun_multichip_on_the_cpu(worlds, world, mesh):
     """``dryrun_multichip`` in a running world of 2 (mesh 2 x 1) and of 4
@@ -392,54 +517,90 @@ def test_dryrun_multichip_on_the_cpu(worlds, world, mesh):
                for o in outs)
 
 
-def test_chip_smoke_halo_rank_on_the_cpu(worlds):
-    """``chip_smoke.halo_rank`` (phase 17b's rank side) at a small shape on
-    2 CPU ranks: the ranks agree, reruns are bitwise, nothing overflows,
-    and the loss and gradients match the single process's
-    (``chip_smoke.halo_value_and_grad`` on the replicated scene)."""
+@pytest.fixture(scope="module")
+def chip_small_single():
+    """``chip_smoke.halo_value_and_grad`` on the small scene in one process."""
     import chip_smoke
 
     scene, v0, gt = chip_smoke.halo_scene("cpu", CHIP_SMALL)
-    loss, aux, grads = chip_smoke.halo_value_and_grad(scene, "cpu")[0](v0, gt)
-    ranks = [r["chip_rank"] for r in worlds[2]]
+    return chip_smoke.halo_value_and_grad(scene, "cpu")[0](v0, gt)
+
+
+def _hold_chip_rank(ranks, single):
+    loss, aux, grads = single
     assert [r["views"] for r in ranks] == [[0, 2], [1]]
     for r in ranks:
         assert r["bitwise"] and not r["overflow"] and not r["halo_overflow"]
-        assert r["capacity"] >= 1.25 * max(r["slab_counts"]) and sum(r["slab_counts"]) == 300
         np.testing.assert_allclose(float(r["loss"]), float(loss), rtol=1e-5)
         for a, b in zip(r["grads"], grads):
             scale = max(float(b.abs().max()), 1e-8)
             np.testing.assert_allclose(a.numpy() / scale, b.numpy() / scale, atol=5e-4)
 
 
+def test_chip_smoke_halo_rank_on_the_cpu(worlds, chip_small_single):
+    """``chip_smoke.mesh_rank`` (phase 17b's rank side) at a small shape on
+    2 CPU ranks: the ranks agree, reruns are bitwise, nothing overflows,
+    and the loss and gradients match the single process's
+    (``chip_smoke.halo_value_and_grad`` on the replicated scene)."""
+    ranks = [r["chip_rank"] for r in worlds[2]]
+    _hold_chip_rank(ranks, chip_small_single)
+    for r in ranks:
+        assert r["capacity"] >= 1.25 * max(r["slab_counts"]) and sum(r["slab_counts"]) == 300
+
+
+def test_chip_smoke_replicated_rank_on_the_cpu(worlds, chip_small_single):
+    """Phase 18's rank side (``mesh_rank(grid_mode="replicated")``) as
+    above, with shards of 150 particles and one grid sum per substep
+    forward (K1's per-block sums: 27 blocks x 4 x 16^3 f32) and one more
+    in the backward."""
+    ranks = [r["chip_rank_replicated"] for r in worlds[2]]
+    _hold_chip_rank(ranks, chip_small_single)
+    for r in ranks:
+        assert r["slab_counts"] == [150, 150] and r["capacity"] == 150
+        assert r["fwd_exchange_per_substep"]["calls"] == 1
+        assert r["fwd_exchange_per_substep"]["bytes"] == 27 * 4 * 16 ** 3 * 4
+        assert r["vg_exchange_per_substep"]["calls"] == 2
+
+
 def test_trainers_over_two_ranks_match_one_process(worlds):
     """``optimize_init_velocity`` (2 epochs, the regularizer on from the
-    first) and ``finetune_constitutive`` (1 epoch) in halo mode on 2
-    ranks: both ranks end with the same velocity and LoRA leaves, those
-    of the single-process trainers (the ranks' gradients are added, the
-    regularizer's once)."""
+    first) and ``finetune_constitutive`` (1 epoch) in halo mode and in
+    the particle-sharded replicated mode on 2 ranks: both ranks end with
+    the same velocity and LoRA leaves, those of the single-process
+    trainers (the ranks' gradients are added, the regularizer's once)."""
     scene, gt = rollout_scene()
     ref_v, ref_vl, ref_l, ref_p = run_trainers(scene, gt)
-    outs = [r["trainers"] for r in worlds[2]]
-    for v, vl, ll, params in outs:
-        np.testing.assert_allclose(v, ref_v, rtol=1e-5, atol=1e-7)
-        np.testing.assert_allclose(vl, ref_vl, rtol=1e-5)
-        np.testing.assert_allclose(ll, ref_l, rtol=1e-5)
-        for a, b in zip(params, ref_p):
-            scale = max(np.abs(b).max(), 1e-8)
-            np.testing.assert_allclose(a / scale, b / scale, atol=1e-5)
-    assert all(np.array_equal(a, b) for a, b in zip(outs[0][3], outs[1][3]))
+    for mode in ("halo", "replicated"):
+        outs = [r["trainers"][mode] for r in worlds[2]]
+        for v, vl, ll, params in outs:
+            np.testing.assert_allclose(v, ref_v, rtol=1e-5, atol=1e-7, err_msg=mode)
+            np.testing.assert_allclose(vl, ref_vl, rtol=1e-5, err_msg=mode)
+            np.testing.assert_allclose(ll, ref_l, rtol=1e-5, err_msg=mode)
+            for a, b in zip(params, ref_p):
+                scale = max(np.abs(b).max(), 1e-8)
+                np.testing.assert_allclose(a / scale, b / scale, atol=1e-5, err_msg=mode)
+        assert all(np.array_equal(a, b) for a, b in zip(outs[0][3], outs[1][3]))
 
 
-def test_halo_mode_requires_a_mesh():
+def test_halo_mode_requires_a_mesh(replicated_rollout):
+    """Halo mode without a mesh, and a view axis equal to the particle
+    axis in either mode, are refused; the replicated mode over a mesh of
+    one builds and gives one process's loss and gradients bit for bit,
+    with the particle axis set or not."""
     scene, gt = rollout_scene()
     with pytest.raises(ValueError, match="requires scene.mesh"):
         make_rollout_loss(dataclasses.replace(scene, grid_mode="halo"), device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        make_rollout_loss(dataclasses.replace(scene, mesh=Mesh(("dp",), (1,))), device="cpu")
-    with pytest.raises(ValueError, match="replicated along the view axis"):
-        make_rollout_loss(dataclasses.replace(scene, mesh=Mesh(("dp",), (1,)), grid_mode="halo",
-                                              view_axis="dp"), device="cpu")
+    one = Mesh(("dp",), (1,))
+    ref = replicated_rollout
+    for axis in (None, "dp"):
+        out = rollout_value_and_grad(dataclasses.replace(scene, mesh=one, particle_axis=axis), gt)
+        assert out[0] == ref[0] and out[2] == ref[2]
+        assert all(np.array_equal(a, b) for a, b in zip(out[1], ref[1]))
+    for mode in ("halo", "replicated"):
+        with pytest.raises(ValueError, match="replicated along the view axis"):
+            make_rollout_loss(dataclasses.replace(scene, mesh=one, grid_mode=mode,
+                                                  particle_axis="dp", view_axis="dp"),
+                              device="cpu")
 
 
 @pytest.mark.parametrize("names", [("dp", "vp"), ("vp", "dp")])
