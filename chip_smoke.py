@@ -203,6 +203,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     under ``build/chip_smoke_e2e/``: exit 0, its JSON line with the device
     ``cuda``, 5 frames, finite losses and K4/K5 launched (its 16^3 grid
     takes the dense branch: K1-K3 are not).
+20. Image-tile sharding (``RasterConfig.tile_sharding``): (a) at the
+    realworld 1920x1080 view (8,160 tiles, P = 523,264 pair slots), K4
+    and K5 with a tile base over four ranges of the frame (the tiles
+    before the first one with a pair, which hold none, then three
+    near-equal ranges): each range's T, C, ``last`` and pair rows equal
+    the whole-frame kernels' bit for bit (rows outside the range zero),
+    each within phase 2's bounds of its plain version run with the same
+    base, and each range's CUDA-event ms against its own bound; (b) four
+    gloo ranks (``parallel.dryrun.spawn``) run one render of that view and
+    the gradient of a seeded weighting of the image with respect to the
+    means, covariances, opacity and SH with the tiles split over them
+    (2,040 each): the image and every gradient equal the rank's unsharded
+    render bit for bit, every rank equal, reruns bitwise, K4 = K5 = 1 per
+    rank; each rank's ms, the gathers' calls, bytes and host ms, and K4/K5
+    alone on its range; (c) in the same world, phase 18's scene with
+    ``raster_cfg.tile_sharding`` over dp (every rank renders a quarter of
+    each of the 3 views, each adding a quarter of the view's loss) with
+    phase 17b's gates against the single process (K4/K5 on every rank),
+    ms/frame per rank and the tile gathers per frame beside phase 18's
+    figures; (d) ``dryrun_multichip(4)``'s tile-sharded render (phase
+    17d's run): its line names it (the dry run asserts the image finite
+    and equal to the unsharded render).
 
 The scenes follow ``bench.py``'s recipe with random weights from seed 0.
 Output: one JSON line ``{"kernels": [...]}`` (launches counted on the
@@ -212,7 +234,8 @@ headline training path; ``launches_app`` in the CLI run of phase 13;
 ``launches_view`` in one ``simulate`` and three renders of phase 16;
 ``launches_halo_rank0`` on rank 0 in one value-and-grad of phase 17b;
 ``launches_replicated_rank0`` likewise in phase 18; ``launches_smoke_e2e``
-over phase 19's two CLI runs),
+over phase 19's two CLI runs; ``launches_tile_rank0`` on rank 0 in one
+value-and-grad of phase 20c),
 the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 """
@@ -300,8 +323,6 @@ def kernel_inputs(scene, gen):
     kappa d new_C) against the grid velocities); the pair features of the
     first view at rest, and random dT/dC for K5."""
     from neuma_tpu_torch.core.types import ParticleState
-    from neuma_tpu_torch.render.rasterize import (
-        _build_aligned_pairs, _project, _sh_colors, _tile_ranges)
     from neuma_tpu_torch.sim import p2g_kernel as pk
     from neuma_tpu_torch.sim.mpm import _p2g_terms, _vjp, grid_op_slabs
 
@@ -337,6 +358,22 @@ def kernel_inputs(scene, gen):
         (pk.pack_payload(c, glay, srt.fx, srt.loc, None, d_new_v, A2), slabs),
     ]
 
+    return dict(
+        payload=payload, c2b=lay.c2b, NB=NB, live=int(lay.valid.sum()),
+        payload_g=payload_g, slabs=slabs, c2b_g=glay.c2b, inv_dx=float(c.inv_dx), k3=k3,
+        **composite_inputs(scene, gen),
+    )
+
+
+@torch.no_grad()
+def composite_inputs(scene, gen):
+    """K4/K5 inputs: the pair features of the scene's first view at rest
+    (as ``rasterize`` builds them), random dT/dC for K5."""
+    from neuma_tpu_torch.render.rasterize import (
+        _build_aligned_pairs, _project, _sh_colors, _tile_ranges)
+
+    dev = scene.init_x.device
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
     g = scene.gaussians
     cam = scene.cameras[0]
     cov = g.get_covariance(scene.scaling_modifier)
@@ -355,8 +392,6 @@ def kernel_inputs(scene, gen):
     pairs_needed = int(torch.where(shown, (x1 - x0) * (y1 - y0), 0).sum())
     nt = counts.shape[0]
     return dict(
-        payload=payload, c2b=lay.c2b, NB=NB, live=int(lay.valid.sum()),
-        payload_g=payload_g, slabs=slabs, c2b_g=glay.c2b, inv_dx=float(c.inv_dx), k3=k3,
         pf=feats[pair_gid].contiguous(), tile_start=tile_start.to(torch.int32),
         counts=counts.to(torch.int32), tiles_x=tiles_x, raster_overflow=bool(overflow),
         pairs_needed=pairs_needed, max_pairs=scene.raster_cfg.max_pairs,
@@ -599,6 +634,23 @@ def check_and_time(tag, inp, rec, composite: bool = True):
     return ok
 
 
+def composite_bounds(tile_start, counts, lk):
+    """K4's and K5's bounds on tiles described by ``tile_start`` /
+    ``counts`` (a frame or a range of it) with K4's ``last`` ``lk``: K4
+    reads each live pair row once and writes T, C and ``last``
+    (operations: 22 per visited (pixel, slot)); K5 reads the rows each
+    tile walks (up to its largest ``last``) twice, and T, ``last``, dT,
+    dC, writing the rows (operations: 60 per visited (pixel, slot))."""
+    nt = counts.shape[0]
+    starts = tile_start[:-1].to(torch.float32)[:, None]
+    visited = torch.where(lk >= 0, lk - starts + 1, torch.zeros_like(lk)).sum()
+    b4 = bound_ms(int(counts.sum()) * 36 + (2 * nt + 1) * 4 + nt * 5 * 256 * 4, float(visited) * 22)
+    walked = (lk.max(1).values - starts[:, 0] + 1).clamp(min=0)
+    walked = torch.minimum(walked, counts.to(torch.float32)).sum()
+    b5 = bound_ms(2 * float(walked) * 36 + (2 * nt + 1) * 4 + nt * 6 * 256 * 4, float(visited) * 60)
+    return b4, b5
+
+
 def check_composite(tag, inp, rec) -> bool:
     """K4 and K5 against their plain versions on ``inp``'s pair features
     (``pf``, ``tile_start``, ``counts``, ``tiles_x``) and random ``dT``,
@@ -617,11 +669,7 @@ def check_composite(tag, inp, rec) -> bool:
     last_mismatch = int((lk != lp).sum())
     ok &= e4 <= K4_TOL and last_mismatch == 0
     nt = inp["counts"].shape[0]
-    starts = inp["tile_start"][:-1].to(torch.float32)[:, None]
-    visited = torch.where(lk >= 0, lk - starts + 1, torch.zeros_like(lk)).sum()
-    b4 = bound_ms(
-        int(inp["counts"].sum()) * 36 + (2 * nt + 1) * 4 + nt * 5 * 256 * 4, float(visited) * 22
-    )
+    b4, b5 = composite_bounds(inp["tile_start"], inp["counts"], lk)
     rec["composite"][tag] = dict(
         max_abs_err=e4, tol=K4_TOL, last_mismatch=last_mismatch,
         ms=cuda_ms(lambda: rk.composite_fwd(*args), 20),
@@ -642,10 +690,6 @@ def check_composite(tag, inp, rec) -> bool:
     end = int(inp["tile_start"][-1])
     e5 = scaled_err_cols(k[:end], p[:end], [slice(j, j + 1) for j in range(9)])
     ok &= e5 <= K5_TOL
-    # slots each tile walks: up to its largest `last`
-    walked = (lk.max(1).values - starts[:, 0] + 1).clamp(min=0)
-    walked = torch.minimum(walked, inp["counts"].to(torch.float32)).sum()
-    b5 = bound_ms(2 * float(walked) * 36 + (2 * nt + 1) * 4 + nt * 6 * 256 * 4, float(visited) * 60)
     rec["composite_bwd"][tag] = dict(
         max_abs_err=e5, tol=K5_TOL,
         ms=cuda_ms(lambda: rk.composite_bwd(*a5), 20),
@@ -2594,20 +2638,23 @@ def halo_capacity(scene, n_shards: int):
 
 
 def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
-              grid_mode: str = "halo") -> dict:
-    """17b/17c and 18, what each rank runs: the value-and-grad on the
+              grid_mode: str = "halo", tiles: bool = False) -> dict:
+    """17b/17c, 18 and 20c, what each rank runs: the value-and-grad on the
     phase's scene over a one-axis mesh of the world, particles on it
     (``grid_mode="halo"``: bins sized by ``halo_capacity``;
-    ``"replicated"``: the particle shards and the summed grid), timed,
+    ``"replicated"``: the particle shards and the summed grid; with
+    ``tiles`` every view's image tiles over the axis too), timed,
     twice, after a forward (and with ``profile`` a second forward, its
     device time read on rank 0; on the CPU only to try the code at a small
     ``shape``). The sim's collectives (the halo exchanges, or the grid
-    sums) are counted in bytes and host seconds."""
+    sums) are counted in bytes and host seconds, and so are the
+    tile-sharded composite's gathers."""
     import torch.distributed as dist
 
     from neuma_tpu_torch import kernels
     from neuma_tpu_torch.parallel import halo, sharding
     from neuma_tpu_torch.parallel.distributed import Mesh
+    from neuma_tpu_torch.render import raster_kernel as rk
     from neuma_tpu_torch.train.grounding import rank_views
 
     world = dist.get_world_size()
@@ -2622,6 +2669,9 @@ def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
         stats, reset_stats = sharding.grid_sum_stats, sharding.reset_grid_sum_stats
     scene = dataclasses.replace(scene, mesh=mesh, particle_axis="dp", grid_mode=grid_mode,
                                 halo_capacity=capacity if grid_mode == "halo" else None)
+    if tiles:
+        scene = dataclasses.replace(scene, raster_cfg=dataclasses.replace(
+            scene.raster_cfg, tile_sharding=sharding.tile_sharding(mesh, "dp")))
     vg, loss_fn = halo_value_and_grad(scene, device)
     frames, steps = gt.shape[0], gt.shape[0] * scene.substeps
     card = device == "cuda"
@@ -2661,6 +2711,7 @@ def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
     for _ in range(2):
         kernels.reset_launches()
         reset_stats()
+        rk.reset_tile_gather_stats()
         if card:
             torch.cuda.reset_peak_memory_stats()
         sync()
@@ -2669,13 +2720,13 @@ def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
         sync()
         runs.append(dict(ms=(time.perf_counter() - t0) / frames * 1e3, loss=loss.cpu(),
                          grads=[g.cpu() for g in grads], launches=dict(kernels.launches),
-                         exchange=dict(stats),
+                         exchange=dict(stats), tile_gathers=dict(rk.tile_gather_stats),
                          overflow=bool(aux["overflow"]), halo_overflow=bool(aux["halo_overflow"]),
                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 if card else 0.0))
     a, b = runs
     per_substep = lambda x: dict(bytes=x["bytes"] / steps, ms=x["seconds"] / steps * 1e3,
                                  calls=x["calls"] / steps)
-    views = rank_views(len(scene.cameras), mesh, scene.view_axis)
+    views = rank_views(len(scene.cameras), mesh, scene.view_axis, "dp" if tiles else None)
     return dict(rank=mesh.rank, world=world, backend=dist.get_backend(), views=views,
                 grid_mode=grid_mode, slab_counts=counts, capacity=capacity,
                 profile_forward=prof, fwd_ms=fwd_ms,
@@ -3049,6 +3100,226 @@ def smoke_e2e_phase(report) -> bool:
     return ok
 
 
+TILE_RANKS = 4
+
+
+def tile_cut(counts):
+    """20a's four ranges of a frame's tiles: the tiles before the first
+    one with a pair (a range with no pair), then the rest in three
+    near-equal ranges."""
+    n = counts.shape[0]
+    nz = torch.nonzero(counts > 0).squeeze(1)
+    first = int(nz[0]) if nz.numel() else n
+    k = -(-(n - first) // 3)
+    edges = [0, first] + [min(first + i * k, n) for i in (1, 2)] + [n]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+@torch.no_grad()
+def tile_kernel_ranges(inp) -> dict:
+    """20a: K4 and K5 with a tile base over each ``tile_cut`` range of
+    ``inp``'s frame: T, C, ``last`` and the pair rows equal the
+    whole-frame kernels' for those tiles bit for bit (rows outside the
+    range's slots zero), the plain versions with the same base within
+    phase 2's bounds, and each range's CUDA-event ms against its own
+    bound."""
+    from neuma_tpu_torch.render import raster_kernel as rk
+
+    pf, start, counts, tx = inp["pf"], inp["tile_start"], inp["counts"], inp["tiles_x"]
+    T, C, last = rk.composite_fwd(pf, start, counts, tx)
+    rows = rk.composite_bwd(pf, start, counts, T, last, inp["dT"], inp["dC"], tx)
+    out, ok = [], True
+    for t0, t1 in tile_cut(counts):
+        ts, cn = start[t0:t1 + 1], counts[t0:t1]
+        Tr, Cr, lr = rk.composite_fwd(pf, ts, cn, tx, t0)
+        Tp, Cp, lp = rk.composite_fwd_plain(pf, ts, cn, tx, t0)
+        a5 = (pf, ts, cn, Tr, lr, inp["dT"][t0:t1].contiguous(), inp["dC"][t0:t1].contiguous(),
+              tx, t0)
+        rr, rp = rk.composite_bwd(*a5), rk.composite_bwd_plain(*a5)
+        lo, hi = int(start[t0]), int(start[t1])
+        torch.cuda.synchronize()
+        whole = (torch.equal(Tr, T[t0:t1]) and torch.equal(Cr, C[t0:t1])
+                 and torch.equal(lr, last[t0:t1]) and torch.equal(rr[lo:hi], rows[lo:hi])
+                 and not bool(rr[:lo].any()) and not bool(rr[hi:].any()))
+        e4 = max(float((Tr - Tp).abs().max()), float((Cr - Cp).abs().max())) if t1 > t0 else 0.0
+        e5 = (scaled_err_cols(rr[lo:hi], rp[lo:hi], [slice(j, j + 1) for j in range(9)])
+              if hi > lo else 0.0)
+        mismatch = int((lr != lp).sum())
+        b4, b5 = composite_bounds(ts, cn, lr)
+        out.append(dict(
+            tiles=[t0, t1], pairs=int(cn.sum()), slots=[lo, hi], whole_frame_bitwise=whole,
+            k4_err=e4, last_mismatch=mismatch, k5_err=e5,
+            k4_ms=cuda_ms(lambda: rk.composite_fwd(pf, ts, cn, tx, t0), 20),
+            k5_ms=cuda_ms(lambda: rk.composite_bwd(*a5), 20),
+            k4_bound_ms=b4[0], k4_bound_by=b4[1], k5_bound_ms=b5[0], k5_bound_by=b5[1]))
+        ok &= whole and e4 <= K4_TOL and mismatch == 0 and e5 <= K5_TOL
+    a5 = (pf, start, counts, T, last, inp["dT"], inp["dC"], tx)
+    frame = dict(k4_ms=cuda_ms(lambda: rk.composite_fwd(pf, start, counts, tx), 20),
+                 k5_ms=cuda_ms(lambda: rk.composite_bwd(*a5), 20))
+    ok &= any(r["pairs"] == 0 for r in out)
+    return dict(ranges=out, frame=frame, tiles=int(counts.shape[0]), pair_slots=int(pf.shape[0]),
+                ok=ok)
+
+
+def tile_render_rank(device: str = "cuda", shape=None) -> dict:
+    """20b, what each rank runs: one render of the realworld scene's first
+    view (``shape`` overrides its keys) and the gradient of sum(w * image)
+    with respect to the means, covariances, opacity and SH, with the tiles
+    over a one-axis mesh of the world, twice, against this process's
+    unsharded render and gradient; the tile gathers' calls, bytes and host
+    seconds; then K4 and K5 alone on the rank's range of tiles (CUDA
+    events; the ranks share the card)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from neuma_tpu_torch import kernels
+    from neuma_tpu_torch.parallel.distributed import Mesh
+    from neuma_tpu_torch.parallel.sharding import tile_sharding
+    from neuma_tpu_torch.render import raster_kernel as rk
+    from neuma_tpu_torch.render.rasterize import rasterize
+    from neuma_tpu_torch.train.grounding import BENCH_SHAPES, build_scene
+
+    world = dist.get_world_size()
+    mesh = Mesh(("dp",), (world,))
+    p = {k: v for k, v in dict(BENCH_SHAPES["realworld"], **(shape or {})).items()
+         if k != "frames"}
+    scene = dataclasses.replace(build_scene(**p, seed=0, device=device), force_mask_data=False)
+    g, cam = scene.gaussians, scene.cameras[0]
+    w = torch.randn((3, cam.height, cam.width),
+                    generator=torch.Generator().manual_seed(20)).to(device)
+    card = device == "cuda"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+
+    def value_and_grad(cfg):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (
+            g.xyz, g.get_covariance(), g.get_opacity, g.get_features)]
+        img = rasterize(leaves[0], leaves[1], leaves[2], cam, scene.background, shs=leaves[3],
+                        sh_degree=g.sh_degree, cfg=cfg)
+        return [img.detach()] + list(torch.autograd.grad((w * img).sum(), leaves))
+
+    one = value_and_grad(scene.raster_cfg)
+    cfg_t = dataclasses.replace(scene.raster_cfg, tile_sharding=tile_sharding(mesh))
+    runs = []
+    for _ in range(2):
+        kernels.reset_launches()
+        rk.reset_tile_gather_stats()
+        sync()
+        t0 = time.perf_counter()
+        out = value_and_grad(cfg_t)
+        sync()
+        runs.append(dict(out=out, ms=(time.perf_counter() - t0) * 1e3,
+                         launches=dict(kernels.launches), gathers=dict(rk.tile_gather_stats)))
+    sync()
+    t0 = time.perf_counter()
+    value_and_grad(scene.raster_cfg)
+    sync()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    a, b = runs
+    equal = lambda xs, ys: all(torch.equal(x, y) for x, y in zip(xs, ys))
+    digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in a["out"])).hexdigest()
+    # K4 and K5 alone on this rank's range of the same pairs
+    inp = composite_inputs(scene, torch.Generator().manual_seed(21))
+    pf, tx = inp["pf"], inp["tiles_x"]
+    t0, t1, _ = rk.tile_range(inp["counts"].shape[0], world, mesh.coord("dp"))
+    ts, cn = inp["tile_start"][t0:t1 + 1], inp["counts"][t0:t1]
+    with torch.no_grad():
+        Tr, _, lr = rk.composite_fwd(pf, ts, cn, tx, t0)
+        a5 = (pf, ts, cn, Tr, lr, inp["dT"][t0:t1].contiguous(), inp["dC"][t0:t1].contiguous(),
+              tx, t0)
+        b4, b5 = composite_bounds(ts, cn, lr)
+        k4_ms = cuda_ms(lambda: rk.composite_fwd(pf, ts, cn, tx, t0), 20) if card else None
+        k5_ms = cuda_ms(lambda: rk.composite_bwd(*a5), 20) if card else None
+    return dict(rank=mesh.rank, tiles=[t0, t1], pairs=int(cn.sum()), digest=digest,
+                one_process_bitwise=equal(one, a["out"]), rerun_bitwise=equal(a["out"], b["out"]),
+                image_finite=bool(torch.isfinite(a["out"][0]).all()), ms=b["ms"], one_ms=one_ms,
+                launches=b["launches"], gathers=b["gathers"], k4_ms=k4_ms, k5_ms=k5_ms,
+                k4_bound_ms=b4[0], k5_bound_ms=b5[0], pair_slots=int(pf.shape[0]))
+
+
+def tile_rank(device: str = "cuda", render_shape=None, mesh_shape=None) -> dict:
+    """20b and 20c, what each rank runs (one world for both)."""
+    render = tile_render_rank(device, render_shape)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(render=render, rollout=mesh_rank(device, mesh_shape, grid_mode="replicated",
+                                                 tiles=True))
+
+
+def tile_phase(report) -> bool:
+    """Phase 20: the image tiles split over ranks (see the module
+    docstring)."""
+    import chip_smoke as this  # the spawned ranks find tile_rank by module
+    from neuma_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
+    from neuma_tpu_torch.train.grounding import BENCH_SHAPES, build_scene
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    # (a) K4 and K5 over four ranges of the realworld view
+    p = {k: v for k, v in BENCH_SHAPES["realworld"].items() if k != "frames"}
+    scene = build_scene(**p, seed=0, device="cuda")
+    kr = tile_kernel_ranges(composite_inputs(scene, torch.Generator().manual_seed(20)))
+    del scene
+    torch.cuda.empty_cache()
+    for r in kr["ranges"]:
+        log(f"[tiles:kernels] tiles {r['tiles']} ({r['pairs']} pairs, slots {r['slots']}): "
+            f"whole-frame rows bitwise {r['whole_frame_bitwise']}; vs plain: K4 err "
+            f"{r['k4_err']:.2e} (bound {K4_TOL:.0e}), last mismatches {r['last_mismatch']}, K5 "
+            f"err {r['k5_err']:.2e} (bound {K5_TOL:.0e}); K4 {r['k4_ms']:.4f} ms (bound "
+            f"{r['k4_bound_ms']:.5f}, {r['k4_bound_by']}), K5 {r['k5_ms']:.4f} ms (bound "
+            f"{r['k5_bound_ms']:.5f}, {r['k5_bound_by']})")
+    log(f"[tiles:kernels] whole frame ({kr['tiles']} tiles, P = {kr['pair_slots']}): K4 "
+        f"{kr['frame']['k4_ms']:.4f} ms, K5 {kr['frame']['k5_ms']:.4f} ms; ok {kr['ok']}")
+
+    # (b, c) four ranks on the card: one render, then the rollout
+    single_reference()
+    t0 = time.perf_counter()
+    ranks = spawn(this.tile_rank, TILE_RANKS, args=("cuda",), device="cuda", backend="gloo")
+    log(f"[tiles:4] {TILE_RANKS} ranks on one card over gloo: {time.perf_counter() - t0:.1f} s")
+    renders = [r["render"] for r in ranks]
+    for r in renders:
+        gx = r["gathers"]
+        log(f"[tiles:render] rank {r['rank']} tiles {r['tiles']} ({r['pairs']} pairs): "
+            f"value-and-grad {r['ms']:.2f} ms (one process {r['one_ms']:.2f}); gathers "
+            f"{gx['calls']} calls, {gx['bytes'] / 1e6:.3f} MB sent, {gx['seconds'] * 1e3:.2f} ms "
+            f"host incl. staging; launches {r['launches']}; K4 {r['k4_ms']:.4f} ms (bound "
+            f"{r['k4_bound_ms']:.5f}), K5 {r['k5_ms']:.4f} ms (bound {r['k5_bound_ms']:.5f}) "
+            f"on its range; one process's bits {r['one_process_bitwise']}, rerun bitwise "
+            f"{r['rerun_bitwise']}")
+    ok_b = (len({r["digest"] for r in renders}) == 1 and all(
+        r["one_process_bitwise"] and r["rerun_bitwise"] and r["image_finite"]
+        and r["launches"].get("composite") == 1 and r["launches"].get("composite_bwd") == 1
+        for r in renders))
+    rollout = mesh_gate([r["rollout"] for r in ranks], "tiles:rollout")
+    frames = HALO_SHAPE["frames"]
+    for r in ranks:
+        gx = r["rollout"]["tile_gathers"]
+        log(f"[tiles:rollout] rank {r['rollout']['rank']} views {r['rollout']['views']}: "
+            f"{r['rollout']['ms']:.2f} ms/frame; tile gathers per frame {gx['calls'] / frames:.0f} "
+            f"calls, {gx['bytes'] / frames / 1e6:.3f} MB sent, "
+            f"{gx['seconds'] / frames * 1e3:.2f} ms host")
+    ok_c = rollout["ok"] and all(r["rollout"]["views"] == [0, 1, 2] for r in ranks)
+    if "replicated" in report:
+        rep_ms = ", ".join(f"{r['ms']:.2f}" for r in report["replicated"]["four"]["ranks"])
+        log(f"[tiles:rollout] beside phase 18 (the same ranks without tile sharding, views on "
+            f"ranks 0-2): {rep_ms} ms/frame per rank")
+    # (d) the dry run's tile-sharded render (phase 17d's run when there was one)
+    t0 = time.perf_counter()
+    dry = (report["halo"]["dryrun"] if "halo" in report
+           else dryrun_multichip(TILE_RANKS, device="cuda", backend="gloo"))
+    ok_d = "+ tile-sharded render" in dry["line"] and bool(np.isfinite(dry["loss"]))
+    log(f"[tiles:dryrun] {dry['line']} ({time.perf_counter() - t0:.1f} s)")
+    out = dict(nvidia_smi=smi, kernels=kr, renders=renders, rollout=rollout,
+               dryrun_line=dry["line"], seconds=time.perf_counter() - t_phase)
+    log(f"[tiles] {smi}; (a) {kr['ok']} (b) {ok_b} (c) {ok_c} (d) {ok_d}; phase "
+        f"{out['seconds']:.1f} s")
+    report["tiles"] = out
+    ok = kr["ok"] and ok_b and ok_c and ok_d
+    if not ok:
+        log("[tiles] FAILED")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3173,6 +3444,8 @@ def main() -> int:
     ok_rep = ok_halo and replicated_phase(report)
     # 19. the port's end-to-end example
     ok_e2e = ok_rep and smoke_e2e_phase(report)
+    # 20. the image tiles over ranks
+    ok_tiles = ok_e2e and tile_phase(report)
     report.update(kernels=rec, launches_train_headline=launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "build"
@@ -3182,7 +3455,7 @@ def main() -> int:
         log("[train] FAILED")
         return 1
     if not (ok_dense and ok_app and ok_serve and ok_regist and ok_view and ok_halo and ok_rep
-            and ok_e2e):
+            and ok_e2e and ok_tiles):
         return 1
 
     sources = {
@@ -3208,6 +3481,7 @@ def main() -> int:
             "launches_replicated_rank0":
                 report["replicated"]["four"]["ranks"][0]["launches"].get(name, 0),
             "launches_smoke_e2e": report["smoke_e2e"]["launches"].get(name, 0),
+            "launches_tile_rank0": report["tiles"]["rollout"]["ranks"][0]["launches"].get(name, 0),
             "check": "pass", "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -17,8 +17,12 @@ backends of ``p2g`` and of the rasterizer, the end-to-end example
 (``examples/smoke_e2e.py``), and scale-out over ``torch.distributed``
 (``parallel/``): the rollout over a mesh with the halo-exchange grid
 (``grid_mode="halo"``) or with particle shards on a replicated grid
-(``grid_mode="replicated"``, the differentiable sharded step), and the
-multi-rank dry run. Not ported yet: ``RasterConfig.tile_sharding``.
+(``grid_mode="replicated"``, the differentiable sharded step), each
+view's image tiles split over a mesh axis (``RasterConfig.tile_sharding``:
+K4 and K5 over each rank's range of tiles), and the multi-rank dry run.
+Left out by design: the JAX package's jnp raster backend, the raster
+knobs ``segment``, ``scale_modifier``, ``pair_grad`` and
+``pair_binning``, and ``ops/bitonic.py``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without an explicit CPU request they raise.

@@ -50,6 +50,10 @@
 // No atomics; every sum runs in a fixed order, so the result repeats bit
 // for bit.
 //
+// A launch may cover a range of a frame's tiles: tile_start and counts are
+// the range's slices, num_tiles its length and tile_base its first tile in
+// the frame (0 for a whole frame).
+//
 // Scratch: one buffer the wrapper allocates at the size
 // neuma_composite_fwd_scratch_words gives (layout below).
 #include "composite_common.cuh"
@@ -74,8 +78,8 @@ __device__ __forceinline__ int factors(int v) { return v >> 8; }
 __global__ void __launch_bounds__(PIX, 4)
 k4_summaries(const float* __restrict__ feats, const int* __restrict__ tile_start,
              const int* __restrict__ counts, const int4* __restrict__ work,
-             const int* __restrict__ total, int tiles_x, float4* __restrict__ summ,
-             int* __restrict__ slast) {
+             const int* __restrict__ total, int tiles_x, int tile_base,
+             float4* __restrict__ summ, int* __restrict__ slast) {
   __shared__ float sf[SEG * NF];
   __shared__ float2 sy[SEG];
   const int lane = threadIdx.x;
@@ -86,7 +90,8 @@ k4_summaries(const float* __restrict__ feats, const int* __restrict__ tile_start
     const int lo = wi.y * SEG;
     const int cnt = min(counts[t] - lo, SEG);
     load_rows(sf, sy, feats, tile_start[t] + lo, cnt);
-    const float px = pixel_x(t, tiles_x, lane), py = pixel_y(t, tiles_x, lane);
+    const float px = pixel_x(t + tile_base, tiles_x, lane);
+    const float py = pixel_y(t + tile_base, tiles_x, lane);
     float P = 1.f, s0 = 0.f, s1 = 0.f, s2 = 0.f;
     int sl = -1, nc = 0;
     for (int j = 0; j < cnt; ++j) {
@@ -112,7 +117,7 @@ k4_summaries(const float* __restrict__ feats, const int* __restrict__ tile_start
 __global__ void __launch_bounds__(PIX)
 k4_combine(const float* __restrict__ feats, const int* __restrict__ tile_start,
            const int* __restrict__ counts, const int* __restrict__ tile_first, int tiles_x,
-           const float4* __restrict__ summ, const int* __restrict__ slast,
+           int tile_base, const float4* __restrict__ summ, const int* __restrict__ slast,
            float* __restrict__ T_out, float* __restrict__ C_out, float* __restrict__ last_out,
            int* __restrict__ exact_out) {
   __shared__ float sf[SEG * NF];
@@ -128,7 +133,8 @@ k4_combine(const float* __restrict__ feats, const int* __restrict__ tile_start,
     const int start = tile_start[t];
     const int nseg = (n + SEG - 1) / SEG;
     const size_t first = (size_t)tile_first[t] * PIX + lane;
-    const float px = pixel_x(t, tiles_x, lane), py = pixel_y(t, tiles_x, lane);
+    const int tp = t + tile_base;  // the tile's index in the frame
+    const float px = pixel_x(tp, tiles_x, lane), py = pixel_y(tp, tiles_x, lane);
     int k = 0;              // the pixel's next segment
     int again = NO_SEG;     // the segment it waits to walk again
     bool finished = false;  // stopped, or past its last segment
@@ -243,8 +249,8 @@ k4_combine(const float* __restrict__ feats, const int* __restrict__ tile_start,
           for (int i = lane; i < ng * cnt; i += PIX) {
             const int e = exact_lane[g0 + i / cnt], j = i % cnt;
             float dx, dy, G, alpha;
-            const bool v = visit(sf + j * NF, pixel_x(t, tiles_x, e), pixel_y(t, tiles_x, e), dx,
-                                 dy, G, alpha);
+            const bool v = visit(sf + j * NF, pixel_x(tp, tiles_x, e), pixel_y(tp, tiles_x, e),
+                                 dx, dy, G, alpha);
             q_exact[(i / cnt) * SEG + j] = v ? __fsub_rn(1.f, alpha) : -1.f;  // -1: skipped
             a_exact[(i / cnt) * SEG + j] = alpha;
           }
@@ -303,8 +309,8 @@ extern "C" int neuma_composite_fwd_scratch_words(int P, int num_tiles) {
 extern "C" int neuma_composite_seg() { return SEG; }
 
 extern "C" int neuma_composite_fwd(const void* feats, const void* tile_start, const void* counts,
-                                   int num_tiles, int tiles_x, void* T, void* C, void* last,
-                                   void* scratch, int P, void* stream) {
+                                   int num_tiles, int tiles_x, int tile_base, void* T, void* C,
+                                   void* last, void* scratch, int P, void* stream) {
   static int ctas_summaries = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_tiles <= 0) return (int)cudaGetLastError();
@@ -324,10 +330,10 @@ extern "C" int neuma_composite_fwd(const void* feats, const void* tile_start, co
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int g = min(max_items, resident_ctas(k4_summaries, &ctas_summaries));
-  k4_summaries<<<g, PIX, 0, s>>>(f, ts, cn, work, total, tiles_x, summ, slast);
+  k4_summaries<<<g, PIX, 0, s>>>(f, ts, cn, work, total, tiles_x, tile_base, summ, slast);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  k4_combine<<<num_tiles, PIX, 0, s>>>(f, ts, cn, tile_first, tiles_x, summ, slast,
+  k4_combine<<<num_tiles, PIX, 0, s>>>(f, ts, cn, tile_first, tiles_x, tile_base, summ, slast,
                                        static_cast<float*>(T), static_cast<float*>(C),
                                        static_cast<float*>(last), ints + lay.exact);
   return (int)cudaGetLastError();

@@ -53,6 +53,10 @@
 // exp, the gradient, the staging) where the bound counts 60 FLOPs; launch 3
 // repeats the guard and exp for the summaries (~25%).
 //
+// A launch may cover a range of a frame's tiles, as K4's: tile_start and
+// counts are the range's slices, tile_base its first tile in the frame; rows
+// outside the range's slots keep the wrapper's zeros.
+//
 // Scratch: one buffer the wrapper allocates at the size
 // neuma_composite_bwd_scratch_words gives (layout below). The plan traps if
 // the work list would not fit it, which only tile ranges that overrun the P
@@ -79,8 +83,9 @@ k5_tile_end(const int* __restrict__ tile_start, const int* __restrict__ counts,
 __global__ void __launch_bounds__(PIX, 4)
 k5_summaries(const float* __restrict__ feats, const int* __restrict__ tile_start,
              const int* __restrict__ tile_end, const int4* __restrict__ work,
-             const int* __restrict__ total, int tiles_x, const float* __restrict__ last_in,
-             const float* __restrict__ dC_in, float2* __restrict__ summ) {
+             const int* __restrict__ total, int tiles_x, int tile_base,
+             const float* __restrict__ last_in, const float* __restrict__ dC_in,
+             float2* __restrict__ summ) {
   __shared__ float sf[SEG * NF];
   __shared__ float2 sy[SEG];
   const int lane = threadIdx.x;
@@ -96,7 +101,8 @@ k5_summaries(const float* __restrict__ feats, const int* __restrict__ tile_start
     const int lim = min(hi, (int)last_in[pix] - start + 1);
     float Tl = 1.f, S = 0.f;
     if (lim > lo) {
-      const float px = pixel_x(t, tiles_x, lane), py = pixel_y(t, tiles_x, lane);
+      const float px = pixel_x(t + tile_base, tiles_x, lane);
+      const float py = pixel_y(t + tile_base, tiles_x, lane);
       const float dc0 = dC_in[(size_t)t * 3 * PIX + lane];
       const float dc1 = dC_in[(size_t)t * 3 * PIX + PIX + lane];
       const float dc2 = dC_in[(size_t)t * 3 * PIX + 2 * PIX + lane];
@@ -118,7 +124,8 @@ k5_summaries(const float* __restrict__ feats, const int* __restrict__ tile_start
 __global__ void __launch_bounds__(PIX, 4)
 k5_gradients(const float* __restrict__ feats, const int* __restrict__ tile_start,
              const int* __restrict__ tile_end, const int4* __restrict__ work,
-             const int* __restrict__ total, int tiles_x, const float* __restrict__ T_in,
+             const int* __restrict__ total, int tiles_x, int tile_base,
+             const float* __restrict__ T_in,
              const float* __restrict__ last_in, const float* __restrict__ dT_in,
              const float* __restrict__ dC_in, const float2* __restrict__ summ,
              float* __restrict__ out) {
@@ -138,7 +145,8 @@ k5_gradients(const float* __restrict__ feats, const int* __restrict__ tile_start
 
     const size_t pix = (size_t)t * PIX + lane;
     const int last_i = (int)last_in[pix] - start;  // local slot of the pixel's last contributor
-    const float px = pixel_x(t, tiles_x, lane), py = pixel_y(t, tiles_x, lane);
+    const float px = pixel_x(t + tile_base, tiles_x, lane);
+    const float py = pixel_y(t + tile_base, tiles_x, lane);
     const float T_fin = T_in[pix];
     const float dT = dT_in[pix];
     const float dc0 = dC_in[(size_t)t * 3 * PIX + lane];
@@ -224,7 +232,8 @@ extern "C" int neuma_composite_bwd_scratch_words(int P, int num_tiles) {
 }
 
 extern "C" int neuma_composite_bwd(const void* feats, const void* tile_start, const void* counts,
-                                   int num_tiles, int tiles_x, const void* T, const void* last,
+                                   int num_tiles, int tiles_x, int tile_base, const void* T,
+                                   const void* last,
                                    const void* dT, const void* dC, void* out, void* scratch,
                                    int P, void* stream) {
   static int ctas_summaries = 0, ctas_gradients = 0;
@@ -249,9 +258,10 @@ extern "C" int neuma_composite_bwd(const void* feats, const void* tile_start, co
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int g1 = min(max_items, resident_ctas(k5_summaries, &ctas_summaries));
-  k5_summaries<<<g1, PIX, 0, s>>>(f, ts, tile_end, work, total, tiles_x, lastp, dCp, summ);
+  k5_summaries<<<g1, PIX, 0, s>>>(f, ts, tile_end, work, total, tiles_x, tile_base, lastp, dCp,
+                                  summ);
   const int g2 = min(max_items, resident_ctas(k5_gradients, &ctas_gradients));
-  k5_gradients<<<g2, PIX, 0, s>>>(f, ts, tile_end, work, total, tiles_x,
+  k5_gradients<<<g2, PIX, 0, s>>>(f, ts, tile_end, work, total, tiles_x, tile_base,
                                   static_cast<const float*>(T), lastp,
                                   static_cast<const float*>(dT), dCp, summ,
                                   static_cast<float*>(out));

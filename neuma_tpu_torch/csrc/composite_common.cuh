@@ -40,6 +40,10 @@ __device__ __forceinline__ bool visit(const float* f, float px, float py, float&
   return alpha >= (float)(1.0 / 255.0);
 }
 
+// Pixel coordinates of lane `lane` of frame tile t. A launch over a range of
+// a frame's tiles (one rank's share under tile sharding) indexes its tiles
+// from 0 and passes t + tile_base, the range's first tile in the frame; the
+// pair slots (tile_start, `last`, the gradient rows) stay the frame's.
 __device__ __forceinline__ float pixel_x(int t, int tiles_x, int lane) {
   return (float)((t % tiles_x) * TILE + (lane % TILE));
 }

@@ -45,11 +45,12 @@ _SIGNATURES = {
     "neuma_g2p_gather": [P, P, P, I, I, F, P, P],
     # payload, slabs, c2b, rows, chunk, dx, inv_dx, out, stream
     "neuma_g2p_gather_derivs": [P, P, P, I, I, F, F, P, P],
-    # pair_feats, tile_start, counts, num_tiles, tiles_x, T, C, last, scratch, P, stream
-    "neuma_composite_fwd": [P, P, P, I, I, P, P, P, P, I, P],
-    # pair_feats, tile_start, counts, num_tiles, tiles_x, T, last, dT, dC, out,
-    # scratch, P, stream
-    "neuma_composite_bwd": [P, P, P, I, I, P, P, P, P, P, P, I, P],
+    # pair_feats, tile_start, counts, num_tiles, tiles_x, tile_base, T, C, last, scratch,
+    # P, stream
+    "neuma_composite_fwd": [P, P, P, I, I, I, P, P, P, P, I, P],
+    # pair_feats, tile_start, counts, num_tiles, tiles_x, tile_base, T, last, dT, dC,
+    # out, scratch, P, stream
+    "neuma_composite_bwd": [P, P, P, I, I, I, P, P, P, P, P, P, I, P],
     # 4-byte words of the scratch each kernel needs: (M, NB), (P, num_tiles)
     "neuma_p2g_scratch_words": [I, I],
     "neuma_composite_fwd_scratch_words": [I, I],

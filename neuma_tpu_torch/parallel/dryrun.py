@@ -1,8 +1,7 @@
 """Multi-rank dry run: one full LoRA training step over a world of ranks.
 
 Counterpart of ``__graft_entry__.dryrun_multichip`` in the JAX package
-(``neuma_tpu/`` has no module of its own for it), without its
-tile-sharded render (``RasterConfig.tile_sharding`` is not ported yet):
+(``neuma_tpu/`` has no module of its own for it):
 
     python -m neuma_tpu_torch.parallel.dryrun --ranks 4 [--device cpu] [--backend gloo]
 
@@ -11,12 +10,14 @@ world it runs in), lays them out as ``dp = n/2 x vp = 2`` for an even
 ``n >= 4`` (else ``dp = n``), and runs one training step on a tiny scene
 (``16 n`` particles spread 0.7 around 0.525, grid 48, ``grid_mode="halo"``,
 2 frames, ``2 vp`` views of 32x32 split over ``vp``): the rollout loss,
-its gradient added over the world, and RAdam on the LoRA leaves. It
-asserts a finite loss
-and prints one line. ``spawn`` is the process launcher it uses: a world
-of fresh processes (``torch.multiprocessing`` spawn, a ``file://``
-rendezvous in a scratch directory), each returning its result through a
-file. A card run of several ranks on one card asks for gloo: NCCL refuses
+its gradient added over the world, and RAdam on the LoRA leaves. Then it
+renders camera 0 once with the image tiles split over ``dp``
+(``RasterConfig.tile_sharding``), the rasterizer's third parallel axis.
+It asserts a finite loss, a finite tile-sharded image equal bit for bit
+to the rank's unsharded render, and prints one line. ``spawn`` is the
+process launcher it uses: a world of fresh processes
+(``torch.multiprocessing`` spawn, a ``file://`` rendezvous in a scratch
+directory), each returning its result through a file. A card run of several ranks on one card asks for gloo: NCCL refuses
 two ranks on one device.
 """
 from __future__ import annotations
@@ -127,11 +128,12 @@ def build_tiny_scene(n_particles=128, grid=16, frames=2, substeps=1, img=32, see
 def _dryrun_rank(n_ranks: int, device: str) -> dict:
     """What each rank runs: the mesh, the scene and one training step."""
     from ..core.types import ParticleState
+    from ..render.rasterize import rasterize
     from ..sim.mpm import trainable_params
     from ..train.grounding import _sum_over_ranks, make_rollout_loss
     from ..train.optim import apply_updates, radam
     from .distributed import Mesh
-    from .sharding import pad_scene_particles
+    from .sharding import pad_scene_particles, tile_sharding
 
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != n_ranks:
@@ -160,10 +162,24 @@ def _dryrun_rank(n_ranks: int, device: str) -> dict:
     loss = float(loss.detach())
     if not np.isfinite(loss):
         raise AssertionError(f"non-finite loss from the sharded step: {loss}")
+
+    # the third rasterizer axis: camera 0's image tiles split over dp
+    g = scene.gaussians
+    with torch.no_grad():
+        cov = g.get_covariance()
+        render = lambda cfg: rasterize(g.xyz, cov, g.get_opacity, scene.cameras[0],
+                                       torch.zeros(3, device=device), shs=g.get_features,
+                                       sh_degree=g.sh_degree, cfg=cfg)
+        img = render(dataclasses.replace(scene.raster_cfg, tile_sharding=tile_sharding(mesh)))
+        img_one = render(scene.raster_cfg)
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("tile-sharded render NaN")
+    if not torch.equal(img, img_one):
+        raise AssertionError("the tile-sharded render differs from the unsharded one")
     backend = dist.get_backend() if dist.is_initialized() else "one process"
     line = (f"dryrun_multichip({n_ranks}): one sharded train step OK (mesh dp={n_dp} x "
-            f"vp={n_vp}, halo-exchange grid slabs at 48^3, {backend} on {device}), "
-            f"loss={loss:.6f}")
+            f"vp={n_vp}, halo-exchange grid slabs at 48^3 + tile-sharded render, {backend} on "
+            f"{device}), loss={loss:.6f}")
     if mesh.rank == 0:
         print(line, flush=True)
     return dict(loss=loss, line=line, dp=n_dp, vp=n_vp, overflow=bool(aux["overflow"]),

@@ -2,20 +2,25 @@
 
 Counterpart of ``neuma_tpu/parallel/sharding.py`` (``make_mesh``,
 ``pad_to_multiple``, ``pad_scene_particles``, ``shard_particles``,
-``replicate``, ``make_sharded_sim_step``). Each rank holds a contiguous
-slice of the particles and a replicated grid: K1 scatters the rank's
-particles into per-block sums, the sums are added over the axis in rank
-order (the all-reduce that XLA inserts in the JAX package), and every
+``replicate``, ``make_sharded_sim_step``, ``tile_sharding``). Each rank
+holds a contiguous slice of the particles and a replicated grid: K1
+scatters the rank's particles into per-block sums, the sums are added
+over the axis in rank order (the all-reduce that XLA inserts in the JAX
+package), and every
 rank runs the slab chain's halo add, ``grid_op_slabs`` and K2 on its own
 particles (on a grid of at most 24 cells, the dense grid is summed
 instead). The step is differentiable: its adjoint adds the ranks' shares
 of the grid cotangent once and runs the rest on the shard. The grounding
 rollout's ``grid_mode="replicated"`` over a mesh runs it
-(``train/grounding.py``). The JAX package's ``tile_sharding`` (its jnp
-rasterizer's tiles over a mesh axis) is not ported yet.
+(``train/grounding.py``). ``tile_sharding`` names the rasterizer's
+third parallel axis beside particles and views: given as
+``RasterConfig.tile_sharding`` it splits each view's image tiles over a
+mesh axis, each rank running K4 and K5 over its own range of tiles
+(``render/raster_kernel.py::composite_pairs_sharded``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -114,6 +119,27 @@ def particle_grid_sum(mesh: Mesh, axis: str = "dp"):
         return out
 
     return grid_sum
+
+
+@dataclasses.dataclass(frozen=True)
+class TileSharding:
+    """The rasterizer's image tiles split over ``axis`` of ``mesh``."""
+
+    mesh: Mesh
+    axis: str
+
+
+def tile_sharding(mesh: Mesh, axis: str = "dp") -> TileSharding:
+    """The split of the rasterizer's image-tile dimension over ``axis``:
+    tiles composite independently, so passing it as
+    ``RasterConfig.tile_sharding`` makes each rank of the axis composite
+    its contiguous range of every view's tiles (K4 forward, K5 backward)
+    and gather the ranges, while the per-Gaussian tables stay replicated.
+    The third rasterizer parallel axis next to particles (dp) and views
+    (vp)."""
+    if axis not in mesh.shape:
+        raise ValueError(f"tile axis {axis!r} is not an axis of the mesh {mesh.axis_names}")
+    return TileSharding(mesh, axis)
 
 
 def make_sharded_sim_step(constants: MPMConstants, mesh: Mesh, axis: str = "dp"):

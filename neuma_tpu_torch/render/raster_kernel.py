@@ -37,6 +37,8 @@ and past ``tile_start[-1]`` are zero.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from .. import kernels
@@ -58,13 +60,15 @@ def _padded_starts(tile_start, tile_counts, num_tiles, group: int = GROUP):
     return torch.cat([tile_start, pad]), torch.cat([tile_counts, zpad]), num_pad
 
 
-def composite_fwd_plain(pair_feats, tile_start, tile_counts, tiles_x: int):
+def composite_fwd_plain(pair_feats, tile_start, tile_counts, tiles_x: int, tile_base: int = 0):
     """Plain version of K4: the renderCUDA loop, one pair slot at a time
-    for all tiles and pixels at once."""
+    for all tiles and pixels at once. ``tile_base`` is the frame index of
+    the first tile (``tile_start`` / ``tile_counts`` then describe a range
+    of the frame's tiles)."""
     dev = pair_feats.device
     num_tiles = tile_counts.shape[0]
     P = pair_feats.shape[0]
-    t_idx = torch.arange(num_tiles, device=dev)
+    t_idx = torch.arange(num_tiles, device=dev) + tile_base
     lane = torch.arange(PIX, device=dev)
     px = ((t_idx % tiles_x) * TILE)[:, None] + (lane % TILE)[None, :]
     py = ((t_idx // tiles_x) * TILE)[:, None] + (lane // TILE)[None, :]
@@ -99,15 +103,19 @@ def composite_fwd_plain(pair_feats, tile_start, tile_counts, tiles_x: int):
     return T, torch.cat(C, dim=1), last
 
 
-def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int, with_exact: bool = False):
-    """K4: returns (T, C, last). Plain version on CPU tensors. With
+def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int, tile_base: int = 0,
+                  with_exact: bool = False):
+    """K4: returns (T, C, last). Plain version on CPU tensors. A range of
+    a frame's tiles is composited from the range's slices
+    ``tile_start[t0 : t1 + 1]`` and ``tile_counts[t0 : t1]`` with
+    ``tile_base = t0`` (the pair slots stay the frame's). With
     ``with_exact`` (CUDA tensors only) a fourth item: each tile's count
     (T,) int32 of pixels whose stop test fell within rounding of 1e-4 and
     that the kernel therefore walked as the plain version does."""
     if not pair_feats.is_cuda:
         if with_exact:
             raise ValueError("with_exact counts K4's own walks; CPU tensors run its plain version")
-        return composite_fwd_plain(pair_feats, tile_start, tile_counts, tiles_x)
+        return composite_fwd_plain(pair_feats, tile_start, tile_counts, tiles_x, tile_base)
     P = pair_feats.shape[0]
     num_tiles = tile_counts.shape[0]
     if P % CHUNK:
@@ -115,8 +123,12 @@ def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int, with_exact:
     kernels.require(pair_feats, "pair_feats", (P, 9), torch.float32)
     kernels.require(tile_start, "tile_start", (num_tiles + 1,), torch.int32)
     kernels.require(tile_counts, "tile_counts", (num_tiles,), torch.int32)
-    lib = kernels.library()
     dev = pair_feats.device
+    if num_tiles == 0:  # an empty range of tiles: nothing to launch
+        empty = torch.empty((0, PIX), dtype=torch.float32, device=dev)
+        out = (empty, torch.empty((0, 3 * PIX), dtype=torch.float32, device=dev), empty.clone())
+        return out + (torch.empty(0, dtype=torch.int32, device=dev),) if with_exact else out
+    lib = kernels.library()
     T = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
     C = torch.empty((num_tiles, 3 * PIX), dtype=torch.float32, device=dev)
     last = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
@@ -126,7 +138,7 @@ def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int, with_exact:
     scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     rc = lib.neuma_composite_fwd(
         pair_feats.data_ptr(), tile_start.data_ptr(), tile_counts.data_ptr(),
-        num_tiles, tiles_x, T.data_ptr(), C.data_ptr(), last.data_ptr(),
+        num_tiles, tiles_x, tile_base, T.data_ptr(), C.data_ptr(), last.data_ptr(),
         scratch.data_ptr(), P, kernels.stream(dev),
     )
     kernels.check(rc, "neuma_composite_fwd")
@@ -136,15 +148,17 @@ def composite_fwd(pair_feats, tile_start, tile_counts, tiles_x: int, with_exact:
     return T, C, last
 
 
-def composite_bwd_plain(pair_feats, tile_start, tile_counts, T, last, dT, dC, tiles_x: int):
+def composite_bwd_plain(pair_feats, tile_start, tile_counts, T, last, dT, dC, tiles_x: int,
+                        tile_base: int = 0):
     """Plain version of K5: the reverse sweep, one pair slot at a time for
     all tiles and pixels at once, with the arithmetic of ``_bwd_kernel``:
     ``contribute = valid & live & (idx <= last)``, exclusive T by
-    division, ``s_dot`` carried from the back, the cap ignored."""
+    division, ``s_dot`` carried from the back, the cap ignored.
+    ``tile_base`` as in ``composite_fwd_plain``."""
     dev = pair_feats.device
     num_tiles = tile_counts.shape[0]
     P = pair_feats.shape[0]
-    t_idx = torch.arange(num_tiles, device=dev)
+    t_idx = torch.arange(num_tiles, device=dev) + tile_base
     lane = torch.arange(PIX, device=dev)
     px = (((t_idx % tiles_x) * TILE)[:, None] + (lane % TILE)[None, :]).to(torch.float32)
     py = (((t_idx // tiles_x) * TILE)[:, None] + (lane // TILE)[None, :]).to(torch.float32)
@@ -198,12 +212,15 @@ def composite_bwd_plain(pair_feats, tile_start, tile_counts, T, last, dT, dC, ti
     return out[:P]
 
 
-def composite_bwd(pair_feats, tile_start, tile_counts, T, last, dT, dC, tiles_x: int):
+def composite_bwd(pair_feats, tile_start, tile_counts, T, last, dT, dC, tiles_x: int,
+                  tile_base: int = 0):
     """K5: per-pair gradient rows (P, 9) from the forward's T and
     ``last`` and the cotangents dT (T, 256), dC (T, 768). Plain version
-    on CPU tensors."""
+    on CPU tensors. Over a range of the frame's tiles (``tile_base`` as in
+    ``composite_fwd``) only the range's slots get rows; the rest are 0."""
     if not pair_feats.is_cuda:
-        return composite_bwd_plain(pair_feats, tile_start, tile_counts, T, last, dT, dC, tiles_x)
+        return composite_bwd_plain(pair_feats, tile_start, tile_counts, T, last, dT, dC, tiles_x,
+                                   tile_base)
     P = pair_feats.shape[0]
     num_tiles = tile_counts.shape[0]
     kernels.require(pair_feats, "pair_feats", (P, 9), torch.float32)
@@ -211,15 +228,17 @@ def composite_bwd(pair_feats, tile_start, tile_counts, T, last, dT, dC, tiles_x:
     kernels.require(tile_counts, "tile_counts", (num_tiles,), torch.int32)
     for name, t, w in (("T", T, PIX), ("last", last, PIX), ("dT", dT, PIX), ("dC", dC, 3 * PIX)):
         kernels.require(t, name, (num_tiles, w), torch.float32)
-    lib = kernels.library()
     dev = pair_feats.device
     out = torch.zeros((P, 9), dtype=torch.float32, device=dev)
+    if num_tiles == 0:  # an empty range of tiles: nothing to launch
+        return out
+    lib = kernels.library()
     words = lib.neuma_composite_bwd_scratch_words(P, num_tiles)
     scratch = torch.empty((words,), dtype=torch.int32, device=dev)
     rc = lib.neuma_composite_bwd(
         pair_feats.data_ptr(), tile_start.data_ptr(), tile_counts.data_ptr(),
-        num_tiles, tiles_x, T.data_ptr(), last.data_ptr(), dT.data_ptr(), dC.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), P, kernels.stream(dev),
+        num_tiles, tiles_x, tile_base, T.data_ptr(), last.data_ptr(), dT.data_ptr(),
+        dC.data_ptr(), out.data_ptr(), scratch.data_ptr(), P, kernels.stream(dev),
     )
     kernels.check(rc, "neuma_composite_bwd")
     kernels.launches["composite_bwd"] += 1
@@ -248,3 +267,97 @@ def composite_pairs(pair_feats, tile_start, tile_counts, tiles_x: int):
     """Differentiable tile composite: K4 forward, K5 backward. Returns
     (T (T, 256), C (T, 768))."""
     return _CompositePairs.apply(pair_feats, tile_start, tile_counts, tiles_x)
+
+
+# The tile-sharded composite's gathers: calls, bytes sent by this rank and
+# host seconds (staging and waiting on the peers included).
+tile_gather_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
+def reset_tile_gather_stats() -> None:
+    tile_gather_stats.update(calls=0, bytes=0, seconds=0.0)
+
+
+def tile_range(num_tiles: int, size: int, coord: int):
+    """``(t0, t1, k)``: the contiguous tiles ``[t0, t1)`` that coordinate
+    ``coord`` of an axis of ``size`` owns, ``k = ceil(num_tiles / size)``
+    each, as ``P(axis)`` splits the tile dimension in the JAX package; a
+    coordinate past the end owns none."""
+    k = -(-num_tiles // size)
+    t0 = min(coord * k, num_tiles)
+    return t0, min(t0 + k, num_tiles), k
+
+
+def _timed_gather(mesh, axis, t):
+    start = time.perf_counter()
+    parts = mesh.all_gather(t.contiguous(), axis)
+    tile_gather_stats["calls"] += 1
+    tile_gather_stats["bytes"] += t.numel() * t.element_size()
+    tile_gather_stats["seconds"] += time.perf_counter() - start
+    return parts
+
+
+class _TileShardedComposite(torch.autograd.Function):
+    """The composite with the tiles split over a mesh axis (see
+    ``composite_pairs_sharded``)."""
+
+    @staticmethod
+    def forward(ctx, pair_feats, tile_start, tile_counts, tiles_x, mesh, axis):
+        num_tiles = tile_counts.shape[0]
+        size = mesh.shape[axis]
+        t0, t1, k = tile_range(num_tiles, size, mesh.coord(axis))
+        ts, cn = tile_start[t0:t1 + 1], tile_counts[t0:t1]
+        T, C, last = composite_fwd(pair_feats, ts, cn, tiles_x, t0)
+        TC = torch.cat([T, C], 1)
+        if t1 - t0 < k:  # the gather takes equal shapes
+            TC = torch.cat([TC, TC.new_zeros((k - (t1 - t0), 4 * PIX))])
+        full = torch.cat(_timed_gather(mesh, axis, TC))[:num_tiles]
+        if ctx.needs_input_grad[0]:
+            # every coordinate's pair slots [tile_start[t0], tile_start[t1]),
+            # contiguous and disjoint: the backward gathers its rows
+            edges = [tile_range(num_tiles, size, r)[0] for r in range(size)] + [num_tiles]
+            ctx.bounds = tile_start[edges].tolist()
+            ctx.save_for_backward(pair_feats, ts, cn, T, last)
+            ctx.meta = (tiles_x, mesh, axis, t0, t1)
+        return full[:, :PIX].contiguous(), full[:, PIX:].contiguous()
+
+    @staticmethod
+    def backward(ctx, dT, dC):
+        pair_feats, ts, cn, T, last = ctx.saved_tensors
+        tiles_x, mesh, axis, t0, t1 = ctx.meta
+        rows = composite_bwd(pair_feats, ts, cn, T, last, dT[t0:t1].contiguous(),
+                             dC[t0:t1].contiguous(), tiles_x, t0)
+        b, c = ctx.bounds, mesh.coord(axis)
+        lens = [hi - lo for lo, hi in zip(b[:-1], b[1:])]
+        width = max(1, max(lens))
+        mine = rows[b[c]:b[c + 1]]
+        if lens[c] < width:
+            mine = torch.cat([mine, mine.new_zeros((width - lens[c], mine.shape[1]))])
+        parts = _timed_gather(mesh, axis, mine)
+        # the pad slots past the last tile's range get no rows
+        tail = rows.new_zeros((rows.shape[0] - b[-1], rows.shape[1]))
+        d_pf = torch.cat([p[:n] for p, n in zip(parts, lens)] + [tail])
+        return d_pf, None, None, None, None, None
+
+
+def composite_pairs_sharded(pair_feats, tile_start, tile_counts, tiles_x: int, mesh, axis: str):
+    """``composite_pairs`` with the frame's tiles split over ``axis`` of
+    ``mesh`` (a ``parallel.distributed.Mesh``): this rank runs K4 over its
+    range ``tile_range(T, size, coord)``, and T and C of every range are
+    gathered over the axis in axis order, so every rank returns the whole
+    frame's (T, C), bit for bit those of ``composite_pairs``.
+
+    The backward follows GSPMD's semantics (the JAX package's
+    ``tile_sharding``): every rank of the axis holds the whole image and
+    the cotangent of the whole image. K5 runs on this rank's range with
+    its own rows of dT and dC, and the ranges' pair-gradient rows, which
+    are disjoint, are gathered over the axis into the (P, 9) rows. The
+    gather's backward does not add the ranks' cotangents (it is not the
+    reduce-scatter of ``parallel.halo.gather_bins``): each tile's rows
+    depend on that tile's cotangent alone, so when every rank of the axis
+    computes the same function of the image, the rows, and every gradient
+    after them, are one process's on every rank. A caller whose ranks'
+    losses differ must make them equal (the rollout weights each rank's
+    share of a view's loss by 1 / size). Every rank of the axis must
+    call it, also one that owns no tile."""
+    return _TileShardedComposite.apply(pair_feats, tile_start, tile_counts, tiles_x, mesh, axis)

@@ -23,8 +23,22 @@ K4/K5 on CUDA tensors and their plain versions on CPU tensors;
 ``"pallas_interpret"`` asks for the plain versions (the JAX package's
 interpreter for debugging its kernels) and raises on CUDA tensors. The
 JAX package's ``"jnp"`` backend, its ``pair_grad`` and ``pair_binning``
-strategies and ``segment`` are not ported: the kernel path is the one
-composite, with the one binning and the one transpose above.
+strategies, ``segment`` and ``scale_modifier`` are left out by design:
+the kernel path is the one composite, with the one binning and the one
+transpose above.
+
+``RasterConfig.tile_sharding`` (``parallel.sharding.tile_sharding(mesh,
+axis)``) splits the image tiles over a mesh axis on that kernel path,
+where the JAX package splits its jnp composite: every rank of the axis
+builds the same pairs (the Gaussian tables stay replicated), composites
+its contiguous range of tiles and gathers T and C over the axis, so
+every rank gets the whole image, bit for bit one process's. Its
+backward gives every rank of the axis the gradient of the whole image,
+as GSPMD does: K5 runs on the rank's own tiles with its own cotangent
+rows and the ranges' pair rows are gathered, not added
+(``raster_kernel.composite_pairs_sharded`` states why). Every rank of
+the axis must render, with the same inputs and the same loss of the
+image.
 
 Every ``argsort``/``sort`` passes ``stable=True``: ties (invisible
 Gaussians at +inf depth, equal tile ids) must keep index order, or
@@ -33,13 +47,16 @@ Gaussians at +inf depth, equal tile ids) must keep index order, or
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
 from ..ops.sh import sh_basis
 from .camera import Camera
-from .raster_kernel import CHUNK, PIX, composite_pairs
+from .raster_kernel import CHUNK, PIX, composite_pairs, composite_pairs_sharded
+
+if TYPE_CHECKING:
+    from ..parallel.sharding import TileSharding
 
 TILE = 16
 BACKENDS = ("auto", "pallas", "pallas_interpret")
@@ -54,6 +71,9 @@ class RasterConfig:
     # the kernel path walks each tile's true count and never reads it.
     max_per_tile: int = 1024
     backend: str = "auto"  # 'auto' | 'pallas' | 'pallas_interpret' (module docstring)
+    # Image-tile sharding over a mesh axis (parallel/sharding.py::tile_sharding;
+    # module docstring). None: one process composites every tile.
+    tile_sharding: Optional["TileSharding"] = None
 
     def __post_init__(self):
         if not self.max_pairs < (1 << 24):
@@ -289,7 +309,13 @@ def rasterize_with_aux(
     cfg: RasterConfig = RasterConfig(),
 ) -> Tuple[torch.Tensor, dict]:
     """Render a (3, H, W) image; ``aux["overflow"]`` is a device bool
-    that fires when pairs past ``max_pairs`` were dropped."""
+    that fires when pairs past ``max_pairs`` were dropped.
+
+    With ``cfg.tile_sharding`` every rank of its axis must call this with
+    the same inputs: each composites its range of the tiles, and each
+    returns the whole image, bit for bit one process's. Differentiated
+    through a loss that every rank of the axis computes alike, every rank
+    gets one process's gradient of every input (the module docstring)."""
     if cfg.backend != "auto" and means3d.is_cuda != (cfg.backend == "pallas"):
         want = "CUDA" if cfg.backend == "pallas" else "CPU"
         raise RuntimeError(
@@ -312,12 +338,13 @@ def rasterize_with_aux(
     pair_gid, counts, tile_start, tiles_x, tiles_y, overflow = pairs[:6]
     feats = torch.cat([mean2d, conic, opacity[:, None], colors], dim=1)
     pair_feats = _gather_pair_feats(feats, pair_gid, pairs[6]) if with_glue else feats[pair_gid]
-    T, Cflat = composite_pairs(
-        pair_feats.contiguous(),
-        tile_start.to(torch.int32),
-        counts.to(torch.int32),
-        tiles_x,
-    )
+    composite_args = (pair_feats.contiguous(), tile_start.to(torch.int32),
+                      counts.to(torch.int32), tiles_x)
+    if cfg.tile_sharding is None:
+        T, Cflat = composite_pairs(*composite_args)
+    else:
+        T, Cflat = composite_pairs_sharded(*composite_args, cfg.tile_sharding.mesh,
+                                           cfg.tile_sharding.axis)
 
     def assemble(flat):  # (num_tiles, PIX) -> (H', W')
         t = flat.reshape(tiles_y, tiles_x, TILE, TILE)

@@ -45,6 +45,19 @@ with early stop off, so every rank reruns its collectives in one order.
 With a ``vp`` axis the sim is replicated along it and each copy's
 backward carries its own rank's views.
 
+With ``raster_cfg.tile_sharding`` over axis ``a`` of the scene's mesh
+(the particle axis or another, never the view axis) each view goes to
+one group of ranks, the ``size(a)`` ranks along ``a`` that share the
+other coordinates (``rank_views`` over the mesh with ``a`` collapsed),
+and every rank of the group renders its range of the view's tiles
+(``render/raster_kernel.py::composite_pairs_sharded``): every rank of
+the group holds the whole image and, through the gathered pair rows,
+the gradient of its own loss of the whole image. Each rank of the group
+therefore adds the view's pixel loss times ``1 / size(a)``: the group's
+losses, hence its cotangents, are equal (the composite's condition),
+the global loss counts the view once, and the trainers' sum over the
+world adds the group's gradients to the view's gradient.
+
 ``build_scene`` makes the scene of ``bench.py``'s recipe (seed-0 points in
 [0.4, 0.6]^3, InvariantFull materials with LoRA, SH Gaussians on the
 points, look-at cameras around the box), made with this package alone.
@@ -130,7 +143,8 @@ class GroundingScene:
     # particles go along ``particle_axis`` (halo mode: the grid's slabs,
     # default "dp"; replicated mode: particle shards, none without it),
     # and the views are split over ``view_axis`` (the sim replicated along
-    # it), or round-robin over the world without it (``rank_views``).
+    # it), or round-robin over the world without it (``rank_views``); with
+    # ``raster_cfg.tile_sharding`` each view's tiles over that axis's ranks.
     mesh: Optional[object] = None
     particle_axis: Optional[str] = None
     view_axis: Optional[str] = None
@@ -187,23 +201,31 @@ def _remat_policy(scene: GroundingScene, num_frames: int) -> str:
     return "none" if total <= _REMAT_BUDGET_BYTES else "frame"
 
 
-def rank_views(n_views: int, mesh, view_axis: Optional[str] = None) -> List[int]:
+def rank_views(n_views: int, mesh, view_axis: Optional[str] = None,
+               tile_axis: Optional[str] = None) -> List[int]:
     """The views this rank renders, each view on exactly one rank of the
-    world. Without ``view_axis`` they go round-robin over the ranks. With
-    it, view ``v`` goes to the ranks at coordinate ``v % size`` on that
-    axis, and among those round-robin over the other axes' coordinates."""
+    mesh with ``tile_axis`` (the image tiles' axis, when they are split)
+    collapsed: the ranks along ``tile_axis`` render the same views.
+    Without ``view_axis`` the views go round-robin over the (collapsed)
+    ranks. With it, view ``v`` goes to the ranks at coordinate ``v %
+    size`` on that axis, and among those round-robin over the other axes'
+    coordinates."""
+    axes = [a for a in mesh.axis_names if a != tile_axis]
+    world = int(np.prod([mesh.shape[a] for a in axes]))
     if view_axis is None:
-        slot = mesh.rank
+        slot = 0
+        for axis in axes:
+            slot = slot * mesh.shape[axis] + mesh.coord(axis)
     else:
         if view_axis not in mesh.shape:
             raise ValueError(f"view_axis {view_axis!r} is not an axis of the mesh "
                              f"{mesh.axis_names}")
         rest = 0
-        for axis in mesh.axis_names:
+        for axis in axes:
             if axis != view_axis:
                 rest = rest * mesh.shape[axis] + mesh.coord(axis)
         slot = mesh.coord(view_axis) + mesh.shape[view_axis] * rest
-    return [v for v in range(n_views) if v % mesh.world == slot]
+    return [v for v in range(n_views) if v % world == slot]
 
 
 def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
@@ -240,11 +262,21 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
     sharded = mesh is not None and not halo and sim_axis is not None
     statics, x0 = scene.statics, scene.init_x
     grid_sum = None
-    if mesh is not None:  # each view on one rank
+    tiles = scene.raster_cfg.tile_sharding
+    tile_ranks = 1  # the ranks that render each of this rank's views
+    if tiles is not None:
+        if mesh is None or tiles.mesh is not mesh:
+            raise ValueError("raster_cfg.tile_sharding must split an axis of scene.mesh")
+        if tiles.axis == scene.view_axis:
+            raise ValueError(f"the tile axis {tiles.axis!r} is the view axis: a view's tiles "
+                             "split over the ranks that render it")
+        tile_ranks = mesh.shape[tiles.axis]
+    if mesh is not None:  # each view on one rank (one group of ranks with tile sharding)
         if scene.view_axis is not None and scene.view_axis == sim_axis:
             raise ValueError(f"view_axis {sim_axis!r} is the particle axis: the sim must be "
                              "replicated along the view axis")
-        views = rank_views(len(views), mesh, scene.view_axis)
+        views = rank_views(len(views), mesh, scene.view_axis,
+                           tiles.axis if tiles is not None else None)
     if halo or sharded:
         n_shards = mesh.shape[sim_axis]
     if halo:
@@ -285,7 +317,8 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         out = [render_one(v, means3d, cov_def) for v in views]
         imgs = torch.stack([o[0] for o in out])
         overflow = torch.stack([o[1] for o in out]).any()
-        frame_loss = pixel_loss(imgs, gt_frame[views]) * len(views)
+        # with tile sharding each rank of the view's group adds its share
+        frame_loss = pixel_loss(imgs, gt_frame[views]) * (len(views) / tile_ranks)
         return de_x, means3d, frame_loss, overflow
 
     def substeps(state, layouts):

@@ -217,11 +217,18 @@ def test_backend_choice_on_the_cpu(raster_scene):
 
 def test_raster_config_validation_matches_jax():
     """The port's fields keep the JAX package's defaults, and an unknown
-    backend fails with its message. Its jnp backend, ``segment``,
+    backend fails with its message. ``tile_sharding`` takes the port's
+    ``parallel.sharding.tile_sharding``. Its jnp backend, ``segment``,
     ``scale_modifier``, ``pair_grad`` and ``pair_binning`` are not ported:
     the value and the fields are refused."""
+    from neuma_tpu_torch.parallel.distributed import Mesh
+    from neuma_tpu_torch.parallel.sharding import TileSharding, tile_sharding
+
     fields = {f.name for f in dataclasses.fields(tras.RasterConfig)}
-    assert fields == {"max_pairs", "max_per_tile", "backend"}
+    assert fields == {"max_pairs", "max_per_tile", "backend", "tile_sharding"}
+    mesh = Mesh(("dp",), (1,))
+    cfg = tras.RasterConfig(tile_sharding=tile_sharding(mesh))
+    assert cfg.tile_sharding == TileSharding(mesh, "dp")
     for name in fields:
         assert getattr(tras.RasterConfig(), name) == getattr(jras.RasterConfig(), name), name
     with pytest.raises(ValueError) as want:

@@ -30,7 +30,9 @@ per step's positions of the CPU. The registration and evaluation
 surface: ``register_gaussians`` on a small scene (K4, K5, the D-SSIM
 gradient, the SH rotation) within rtol 1e-4 of the CPU per logged loss
 and a scaled 1e-4 per parameter, bitwise repeatable; SSIM and LPIPS-VGG
-on the card within rtol 1e-5 and 1e-4 of the CPU with TF32 off.
+on the card within rtol 1e-5 and 1e-4 of the CPU with TF32 off. K4 and
+K5 over ranges of a frame's tiles (a tile base, as tile sharding runs
+them) give the whole-frame kernels' rows of those tiles bit for bit.
 """
 import numpy as np
 import pytest
@@ -286,6 +288,42 @@ def test_composite_kernel_skewed_frame(cuda):
     assert torch.equal(lk, lp)
     for a, b in zip((Tk, Ck, lk), rk.composite_fwd(*args)):
         assert torch.equal(a, b)  # bitwise repeatable
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["random", "skewed"])
+def test_composite_kernels_over_a_tile_range(cuda, frame):
+    """K4 and K5 over ranges of a frame's tiles (a tile base; the
+    ``tile_sharding`` split of 4, a range without pairs, an empty range)
+    give the whole-frame kernels' T, C, ``last`` and pair rows of those
+    tiles bit for bit, zero rows elsewhere, and match their plain versions
+    run with the same base."""
+    pf, start, counts, tiles_x = (_composite_inputs(cuda, seed=6) if frame == "random"
+                                  else _skewed_frame(cuda))
+    n = counts.shape[0]
+    T, C, last = rk.composite_fwd(pf, start, counts, tiles_x)
+    gen = torch.Generator().manual_seed(7)
+    dT = torch.randn(T.shape, generator=gen).to(cuda)
+    dC = torch.randn(C.shape, generator=gen).to(cuda)
+    rows = rk.composite_bwd(pf, start, counts, T, last, dT, dC, tiles_x)
+    k = -(-n // 4)
+    ranges = [(min(c * k, n), min((c + 1) * k, n)) for c in range(4)] + [(n, n)]
+    for t0, t1 in ranges:
+        ts, cn = start[t0:t1 + 1], counts[t0:t1]
+        Tr, Cr, lr = rk.composite_fwd(pf, ts, cn, tiles_x, t0)
+        for a, b in ((Tr, T[t0:t1]), (Cr, C[t0:t1]), (lr, last[t0:t1])):
+            assert torch.equal(a, b), (t0, t1)
+        Tp, Cp, lp = rk.composite_fwd_plain(pf, ts, cn, tiles_x, t0)
+        if t1 > t0:
+            assert float((Tr - Tp).abs().max()) <= 2e-5 and float((Cr - Cp).abs().max()) <= 2e-5
+        assert torch.equal(lr, lp)
+        a5 = (pf, ts, cn, Tr, lr, dT[t0:t1].contiguous(), dC[t0:t1].contiguous(), tiles_x, t0)
+        rr, rp = rk.composite_bwd(*a5), rk.composite_bwd_plain(*a5)
+        lo, hi = int(start[t0]), int(start[t1])
+        assert torch.equal(rr[lo:hi], rows[lo:hi]), (t0, t1)
+        assert not rr[:lo].any() and not rr[hi:].any()
+        for j in range(9 if hi > lo else 0):
+            assert _scaled_err(rr[lo:hi, j], rp[lo:hi, j]) <= 1e-5, (t0, t1, j)
 
 
 @pytest.mark.cuda

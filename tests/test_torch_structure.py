@@ -51,13 +51,15 @@ PARALLEL = ["distributed.py", "halo.py", "sharding.py", "dryrun.py"]
 def test_parallel_modules_are_checked_and_spawned_ranks_import_no_jax():
     """The scale-out modules are among the sources scanned above, and a
     spawned rank (which imports the port's parallel package and the rank
-    functions of ``tests/test_torch_parallel.py`` or ``chip_smoke.py``)
+    functions of ``tests/test_torch_parallel.py``,
+    ``tests/test_torch_tile_sharding.py`` or ``chip_smoke.py``)
     loads no JAX at all, nor does the port's example."""
     for name in PARALLEL:
         assert PORT / "parallel" / name in SOURCES, name
     assert PORT / "examples" / "smoke_e2e.py" in SOURCES
     code = ("import sys; sys.path.insert(0, 'tests'); import neuma_tpu_torch.parallel, "
             "neuma_tpu_torch.parallel.dryrun, neuma_tpu_torch.train.grounding, test_torch_parallel, "
+            "test_torch_tile_sharding, "
             "chip_smoke, neuma_tpu_torch.examples.smoke_e2e; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'neuma_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
