@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    realworld scenes; each kernel, its plain version and (K1 only)
    ``index_add_`` are timed with CUDA events, and the device time of each
    CUDA kernel a wrapper launches is read with torch.profiler. Each
-   bound counts the bytes the function needs (K1-K3: the payload columns
+   bound (at ``utils/roofline.py``'s ``H100_SXM`` peaks, NVIDIA's data
+   sheet) counts the bytes the function needs (K1-K3: the payload columns
    it reads; K2/K3: the slab cells its taps touch), with the older
    all-48-column figure beside it; K2 also gets a launch floor, the device
    time of one launch writing its output only. It also
@@ -31,7 +32,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
 5. Realworld forward (30k particles, 70^3 grid, three 1920x1080 mask
    views, 2 frames x 20 substeps): loss, overflow, ms/frame.
    Phases 3 and 5 also profile one forward (device idle share, time by
-   kernel) and each layer of one substep and one view.
+   kernel) and each layer of one substep and one view. Phases 3, 5, 7
+   and 9 each print the whole step's share of the roofline: ``sol_ms``
+   from ``roofline.grounding_step_frame`` (``bwd_factor`` 1 forward, 3
+   forward + backward; the first view's pairs counted as ``bench.py``
+   counts them) over the measured ms/frame, beside the card's name and
+   power limit; a card whose name is not an H100 SXM's fails the phase.
 6. A small scene's loss on the card (kernels) and on the CPU (plain
    versions) within rtol 1e-4.
 7. Headline value-and-grad (the training path, the work ``bench.py``
@@ -254,8 +260,6 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-FP32_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores, NVIDIA data sheet
 K12_TOL = 1e-5  # scaled max abs error: both sides full FP32
 K3_TOL = 1e-5  # scaled per output group: dx sums 27 signed spline-derivative terms
 K4_TOL = 2e-5  # abs error on T and C
@@ -308,9 +312,45 @@ def scaled_err_cols(a: torch.Tensor, b: torch.Tensor, groups) -> float:
 
 
 def bound_ms(nbytes: float, flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    """The bytes' time at the card's HBM rate or the operations' at its
+    FP32 rate (``roofline.H100_SXM``, NVIDIA's data sheet), whichever is
+    larger, in ms, and which it was."""
+    from neuma_tpu_torch.utils.roofline import H100_SXM
+
+    t_bytes = nbytes / H100_SXM.hbm_bps * 1e3
+    t_ops = flops / H100_SXM.f32_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@torch.no_grad()
+def roofline_share(tag, scene, shape, ms_per_frame: float, bwd_factor: float, smi: str):
+    """The whole step's share of the roofline: ``grounding_step_frame``
+    at ``H100_SXM``'s peaks over the measured ms/frame (``bwd_factor`` 1
+    for the forward, 3 for forward + backward). The pairs are the first
+    view's, counted as ``bench.py`` counts them: the sum of the pair
+    build's counts at the initial positions. None (the phase fails) on
+    a card that is not an H100, whose peaks these are not."""
+    from neuma_tpu_torch.render.rasterize import _build_aligned_pairs, _project
+    from neuma_tpu_torch.utils import roofline
+
+    if "H100" not in smi or "PCIe" in smi or "NVL" in smi:
+        log(f"[{tag}] FAILED: the roofline's peaks are the H100 SXM's, the card is {smi}")
+        return None
+    cam = scene.cameras[0]
+    depth, visible, mean2d, _, radius = _project(
+        scene.init_x, scene.gaussians.get_covariance(), cam)
+    counts = _build_aligned_pairs(depth, visible, mean2d, radius, cam.width, cam.height,
+                                  scene.raster_cfg)[1]
+    n_pairs = int(counts.sum())
+    sol_ms = roofline.grounding_step_frame(
+        shape["n_particles"], shape["grid"], cam.width, cam.height, n_pairs,
+        scene.raster_cfg.max_pairs, substeps=shape["substeps"], n_views=shape["n_views"],
+        bwd_factor=bwd_factor) * 1e3
+    share = sol_ms / ms_per_frame
+    log(f"[{tag}] roofline: sol {sol_ms:.6f} ms/frame (bwd_factor {bwd_factor:g}, {n_pairs} "
+        f"pairs in view 0), share {share:.4e} of {ms_per_frame:.2f} ms/frame on {smi}")
+    return dict(sol_ms=sol_ms, n_pairs=n_pairs, bwd_factor=bwd_factor,
+                ms_per_frame=ms_per_frame, share=share, card=smi)
 
 
 @torch.no_grad()
@@ -959,6 +999,10 @@ def training_phases(scenes, report, init_v):
     if not all(v > 0 for v in norms.values()):
         log("[train:headline] FAILED: a zero gradient norm")
         return False, launches
+    share = roofline_share("train:headline", h_scene, hp, ms_h, 3.0, report["nvidia_smi"])
+    report["roofline"]["train_headline"] = share
+    if share is None:
+        return False, launches
     report["train_headline"] = dict(
         loss=float(loss_h), ms_per_frame=ms_h, launches=launches, grad_norms=norms,
         peak_gib=peak_h, profile=profile_step(vg, h_args),
@@ -996,6 +1040,10 @@ def training_phases(scenes, report, init_v):
                                      layers=train_layer_breakdown("realworld", r_scene, init_v))
     if not finite:
         log("[train:realworld] FAILED: non-finite values")
+        return False, launches
+    share = roofline_share("train:realworld", r_scene, rp, ms_r, 3.0, report["nvidia_smi"])
+    report["roofline"]["train_realworld"] = share
+    if share is None:
         return False, launches
 
     # 10. small scene gradients, card vs CPU
@@ -3379,6 +3427,9 @@ def main() -> int:
     if not torch.isfinite(loss_h):
         log("[headline] FAILED: non-finite loss")
         return 1
+    report["roofline"] = {"headline": roofline_share("headline", h_scene, hp, ms_h, 1.0, smi)}
+    if report["roofline"]["headline"] is None:
+        return 1
     report["profile_headline"] = profile_step(h_loss, h_args)
     report["layers_headline"] = layer_breakdown("headline", h_scene)
 
@@ -3403,6 +3454,10 @@ def main() -> int:
         f"{ms_r:.2f} ms/frame (forward) launches {launches_fwd_r}")
     if not torch.isfinite(loss_r):
         log("[realworld] FAILED: non-finite loss")
+        return 1
+    report["roofline"]["realworld"] = roofline_share("realworld", scenes["realworld"], rp, ms_r,
+                                                     1.0, smi)
+    if report["roofline"]["realworld"] is None:
         return 1
     report["profile_realworld"] = profile_step(r_loss, r_args)
     report["layers_realworld"] = layer_breakdown("realworld", scenes["realworld"])

@@ -19,7 +19,9 @@ backends of ``p2g`` and of the rasterizer, the end-to-end example
 (``grid_mode="halo"``) or with particle shards on a replicated grid
 (``grid_mode="replicated"``, the differentiable sharded step), each
 view's image tiles split over a mesh axis (``RasterConfig.tile_sharding``:
-K4 and K5 over each rank's range of tiles), and the multi-rank dry run.
+K4 and K5 over each rank's range of tiles), the multi-rank dry run,
+the speed-of-light model ``utils/roofline.py`` (the H100 SXM's peaks),
+and each subpackage's exports, name for name as in the JAX package.
 Left out by design: the JAX package's jnp raster backend, the raster
 knobs ``segment``, ``scale_modifier``, ``pair_grad`` and
 ``pair_binning``, and ``ops/bitonic.py``.

@@ -3,7 +3,8 @@
 Counterpart of ``neuma_tpu/core/types.py``: ``MPMConstants`` (with
 ``from_cfg``), ``GridGeom`` (a view of the grid), ``Statics`` (with
 ``from_sections`` and ``with_enabled_at_step``) and ``ParticleState`` as
-plain dataclasses of float32 tensors, each with a ``.to(device)``.
+plain dataclasses of float32 tensors, each with a ``.to(device)``, and
+``GridState`` (the grid fields, flattened).
 
 Conventions (as in the JAX package): the grid is a cube of
 ``num_grids`` cells per side in [0, 1]^3 with ``dx = 1 / num_grids``;
@@ -13,10 +14,12 @@ affine matrix.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .device import resolve_device
 
 
 def _to(obj, device):
@@ -182,3 +185,31 @@ class ParticleState:
 
     def to(self, device) -> "ParticleState":
         return _to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridState:
+    """Background grid fields, stored flattened (G^3, ...); ``cube``
+    gives the (G, G, G, ...) views."""
+
+    m: torch.Tensor  # (G^3,) mass
+    mv: torch.Tensor  # (G^3, 3) momentum
+    v: torch.Tensor  # (G^3, 3) velocity
+
+    @classmethod
+    def zeros(cls, num_grids: int, dtype=torch.float32, device=None) -> "GridState":
+        device = resolve_device(device)
+        g3 = num_grids ** 3
+        return cls(
+            m=torch.zeros((g3,), dtype=dtype, device=device),
+            mv=torch.zeros((g3, 3), dtype=dtype, device=device),
+            v=torch.zeros((g3, 3), dtype=dtype, device=device),
+        )
+
+    def cube(self, num_grids: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        g = num_grids
+        return (
+            self.m.reshape(g, g, g),
+            self.mv.reshape(g, g, g, 3),
+            self.v.reshape(g, g, g, 3),
+        )

@@ -1,8 +1,10 @@
-"""COLMAP binary/text camera readers and ``rodrigues``.
+"""COLMAP binary/text model readers (cameras, images, points3D),
+``qvec_to_rotmat`` and ``rodrigues``.
 
 Counterpart of ``neuma_tpu/data/colmap.py`` (``CAMERA_MODELS``,
 ``ColmapCamera``, ``read_cameras_binary``, ``read_cameras_text``,
-``rodrigues``), the same numpy code: what the RealCapture reader uses.
+``ColmapImage``, ``read_images_binary``, ``read_points3d_binary``,
+``qvec_to_rotmat``, ``rodrigues``), the same numpy code.
 """
 from __future__ import annotations
 
@@ -76,6 +78,67 @@ def read_cameras_text(path) -> Dict[int, ColmapCamera]:
                 params=np.array([float(p) for p in parts[4:]]),
             )
     return cameras
+
+
+@dataclasses.dataclass
+class ColmapImage:
+    id: int
+    qvec: np.ndarray  # (4,) wxyz
+    tvec: np.ndarray  # (3,)
+    camera_id: int
+    name: str
+
+
+def read_images_binary(path) -> Dict[int, ColmapImage]:
+    images = {}
+    with open(path, "rb") as f:
+        num = struct.unpack("<Q", f.read(8))[0]
+        for _ in range(num):
+            data = struct.unpack("<idddddddi", f.read(64))
+            image_id = data[0]
+            qvec = np.array(data[1:5])
+            tvec = np.array(data[5:8])
+            camera_id = data[8]
+            name = b""
+            while True:
+                c = f.read(1)
+                if c == b"\x00":
+                    break
+                name += c
+            n_pts = struct.unpack("<Q", f.read(8))[0]
+            f.read(24 * n_pts)  # skip 2D points
+            images[image_id] = ColmapImage(
+                id=image_id,
+                qvec=qvec,
+                tvec=tvec,
+                camera_id=camera_id,
+                name=name.decode("utf-8"),
+            )
+    return images
+
+
+def read_points3d_binary(path):
+    xyzs, rgbs = [], []
+    with open(path, "rb") as f:
+        num = struct.unpack("<Q", f.read(8))[0]
+        for _ in range(num):
+            data = struct.unpack("<QdddBBBd", f.read(43))
+            xyzs.append(data[1:4])
+            rgbs.append(data[4:7])
+            track_len = struct.unpack("<Q", f.read(8))[0]
+            f.read(8 * track_len)
+    return np.array(xyzs), np.array(rgbs, np.uint8)
+
+
+def qvec_to_rotmat(qvec: np.ndarray) -> np.ndarray:
+    w, x, y, z = qvec
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ]
+    )
 
 
 def rodrigues(rvec: np.ndarray) -> np.ndarray:

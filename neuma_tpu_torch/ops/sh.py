@@ -67,3 +67,7 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * C0 + 0.5

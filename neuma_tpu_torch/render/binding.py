@@ -2,7 +2,8 @@
 
 Counterpart of ``neuma_tpu/render/binding.py`` (``BindingTable`` with
 ``counts``, ``save`` and ``load``,
-``mahalanobis_field``, ``compute_binding_table``, ``apply_binding_xyz``,
+``mahalanobis_field``, ``compute_binding_table``, ``binding_flags``,
+``apply_binding_xyz``,
 ``apply_binding_F``, ``deform_cov_by_F``): a dense (K, M) index/weight
 table from the chunked Mahalanobis field, applied by gathers and a
 weighted sum. The JAX package's stop-gradients are kept: the previous
@@ -153,6 +154,18 @@ def compute_binding_table(
         indices.append(idx)
         weights.append(w.to(torch.float32))
     return BindingTable(torch.cat(indices), torch.cat(weights))
+
+
+def binding_flags(
+    gaussians: GaussianPack,
+    particles: torch.Tensor,
+    confidence: float = 0.95,
+    max_particles: int = 10,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Boolean 'has any bound particle' per kernel: (K,)."""
+    table = compute_binding_table(gaussians, particles, confidence, max_particles, chunk)
+    return table.counts() > 0
 
 
 def apply_binding_xyz(table: BindingTable, p_curr, p_prev, k_prev) -> torch.Tensor:

@@ -32,6 +32,11 @@ import numpy as np
 import torch
 
 from ..core.types import GridGeom, MPMConstants, geom_dims
+from .p2g_kernel import BLOCK  # noqa: F401  (the grid block side, 14)
+
+# The JAX package's chunk of its jnp blocked scatter. The port has no jnp
+# blocked scatter: K1 carves its blocks into ``p2g_kernel.CHUNK`` rows.
+CHUNK = 512
 
 # Static 3x3x3 tap offsets, (27, 3), x-major.
 _OFFSETS = np.stack(

@@ -1,14 +1,31 @@
-"""Stdout tee and elapsed-time formatting.
+"""Running averages, stdout tee and elapsed-time formatting.
 
-Counterpart of ``neuma_tpu/utils/logging.py`` (``Logger.tee``,
-``Timer``), the same code, and ``Logger.close``, which ends the tee so
-that one process can run an app more than once.
+Counterpart of ``neuma_tpu/utils/logging.py`` (``AverageMeter``,
+``Logger.tee``, ``Timer``), the same code, and ``Logger.close``, which
+ends the tee so that one process can run an app more than once.
 """
 from __future__ import annotations
 
 import sys
 import time
 from pathlib import Path
+
+
+class AverageMeter:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
 
 
 class Logger:

@@ -27,12 +27,12 @@ from neuma_tpu.render.camera import Camera as JaxCamera
 from neuma_tpu.sim import mpm as jmpm
 from neuma_tpu_torch import interop
 from neuma_tpu_torch.core.types import ParticleState as TState
-from neuma_tpu_torch.render import rasterize as tras
 from neuma_tpu_torch.sim import mpm as tmpm
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-# neuma_tpu.render re-exports a `rasterize` function under the submodule's name.
+# Both packages' render re-export a `rasterize` function under the submodule's name.
 jras = importlib.import_module("neuma_tpu.render.rasterize")
+tras = importlib.import_module("neuma_tpu_torch.render.rasterize")
 
 TOL = 1e-5
 SIZE = 48

@@ -27,12 +27,12 @@ from neuma_tpu_torch.ops import sh as tsh
 from neuma_tpu_torch.render import binding as tbind
 from neuma_tpu_torch.render import gaussians as tgs
 from neuma_tpu_torch.render import raster_kernel as trk
-from neuma_tpu_torch.render import rasterize as tras
 from neuma_tpu_torch.render.camera import Camera
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-# neuma_tpu.render re-exports a `rasterize` function under the submodule's name.
+# Both packages' render re-export a `rasterize` function under the submodule's name.
 jras = importlib.import_module("neuma_tpu.render.rasterize")
+tras = importlib.import_module("neuma_tpu_torch.render.rasterize")
 
 SIZE = 64
 

@@ -24,11 +24,11 @@ from neuma_tpu.render import pallas_raster as jpr
 from neuma_tpu.render.camera import Camera as JaxCamera
 from neuma_tpu_torch import interop
 from neuma_tpu_torch.render import raster_kernel as trk
-from neuma_tpu_torch.render import rasterize as tras
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-# neuma_tpu.render re-exports a `rasterize` function under the submodule's name.
+# Both packages' render re-export a `rasterize` function under the submodule's name.
 jras = importlib.import_module("neuma_tpu.render.rasterize")
+tras = importlib.import_module("neuma_tpu_torch.render.rasterize")
 
 SIZE = 64
 
