@@ -216,14 +216,15 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     near-equal ranges): each range's T, C, ``last`` and pair rows equal
     the whole-frame kernels' bit for bit (rows outside the range zero),
     each within phase 2's bounds of its plain version run with the same
-    base, and each range's CUDA-event ms against its own bound; (b) four
-    gloo ranks (``parallel.dryrun.spawn``) run one render of that view and
-    the gradient of a seeded weighting of the image with respect to the
-    means, covariances, opacity and SH with the tiles split over them
-    (2,040 each): the image and every gradient equal the rank's unsharded
-    render bit for bit, every rank equal, reruns bitwise, K4 = K5 = 1 per
-    rank; each rank's ms, the gathers' calls, bytes and host ms, and K4/K5
-    alone on its range; (c) in the same world, phase 18's scene with
+    base, and each range's CUDA-event ms against its own bound and its
+    plain version's; (b) four gloo ranks (``parallel.dryrun.spawn``) run
+    one render of that view and the gradient of a seeded weighting of the
+    image with respect to the means, covariances, opacity and SH with the
+    tiles split over them (2,040 each): the image and every gradient equal
+    the rank's unsharded render bit for bit, every rank equal, reruns
+    bitwise, K4 = K5 = 1 per rank; each rank's ms, the gathers' calls,
+    bytes and host ms, and K4/K5 and their plain versions alone on its
+    range; (c) in the same world, phase 18's scene with
     ``raster_cfg.tile_sharding`` over dp (every rank renders a quarter of
     each of the 3 views, each adding a quarter of the view's loss) with
     phase 17b's gates against the single process (K4/K5 on every rank),
@@ -231,6 +232,22 @@ Phases (any failure exits non-zero; there is no CPU fallback):
     figures; (d) ``dryrun_multichip(4)``'s tile-sharded render (phase
     17d's run): its line names it (the dry run asserts the image finite
     and equal to the unsharded render).
+21. The JAX package's jnp raster backend (``RasterConfig(backend="jnp")``:
+    each tile's depth list cut at ``max_per_tile``, composited by K4/K5):
+    (a) with ``max_per_tile`` 2,048, above every headline tile's count,
+    one render's value-and-grad at the headline view (the image and the
+    gradients with respect to the means, covariances, opacity and SH of a
+    seeded weighting of it) and the headline rollout's value-and-grad are
+    bitwise the default path's (loss, every gradient leaf, ``overflow``),
+    with K4 = K5 = 1 per rendered view; (b) at the configs' 512, on the
+    headline view and the realworld first view, K4 and K5 on the cut
+    layout against their plain versions (phase 2's bounds), ``overflow``
+    true, the tiles cut, the pairs the cap dropped and the deepest tile
+    before and after the cut, and K4/K5's CUDA-event ms on the cut and the
+    whole layouts, each beside its bound over the pairs it composites;
+    (c) the headline rollout forward at 512: a finite loss with
+    ``overflow`` true, its ms/frame beside the default path's, timed again
+    in the phase, and phase 3's.
 
 The scenes follow ``bench.py``'s recipe with random weights from seed 0.
 Output: one JSON line ``{"kernels": [...]}`` (launches counted on the
@@ -241,7 +258,8 @@ headline training path; ``launches_app`` in the CLI run of phase 13;
 ``launches_halo_rank0`` on rank 0 in one value-and-grad of phase 17b;
 ``launches_replicated_rank0`` likewise in phase 18; ``launches_smoke_e2e``
 over phase 19's two CLI runs; ``launches_tile_rank0`` on rank 0 in one
-value-and-grad of phase 20c),
+value-and-grad of phase 20c; ``launches_jnp`` in phase 21a's rollout
+value-and-grad),
 the card's ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Details go to ``build/chip_smoke.json``.
 """
@@ -406,9 +424,10 @@ def kernel_inputs(scene, gen):
 
 
 @torch.no_grad()
-def composite_inputs(scene, gen):
+def composite_inputs(scene, gen, max_per_tile=None):
     """K4/K5 inputs: the pair features of the scene's first view at rest
-    (as ``rasterize`` builds them), random dT/dC for K5."""
+    (as ``rasterize`` builds them; each tile cut at ``max_per_tile`` when it
+    is given, as the jnp backend builds them), random dT/dC for K5."""
     from neuma_tpu_torch.render.rasterize import (
         _build_aligned_pairs, _project, _sh_colors, _tile_ranges)
 
@@ -424,7 +443,8 @@ def composite_inputs(scene, gen):
     else:
         colors = _sh_colors(g.get_features, g.xyz, cam.camera_center, g.sh_degree)
     pair_gid, counts, tile_start, tiles_x, _, overflow = _build_aligned_pairs(
-        depth, visible, mean2d, radius, cam.width, cam.height, scene.raster_cfg
+        depth, visible, mean2d, radius, cam.width, cam.height, scene.raster_cfg,
+        max_per_tile=max_per_tile,
     )
     feats = torch.cat([mean2d, conic, opacity[:, None], colors], 1)
     x0, y0, x1, y1, _, _ = _tile_ranges(mean2d, radius, cam.width, cam.height)
@@ -763,16 +783,22 @@ def log_checks(tag, rec, names):
             log(f"[work:{tag}] {name} device {ms:.4f} ms  {key}")
 
 
-def timed(fn, args, reps=3):
-    """Median host seconds of ``reps`` synchronized calls after a warm-up,
-    and the kernel launches of the warm-up call (every count set to 0
-    just before it and read just after). Returns the warm-up's output."""
+def counted(fn, *args):
+    """``fn(*args)`` and the kernel launches of that call (every count set
+    to 0 just before it and read just after)."""
     from neuma_tpu_torch import kernels
 
     kernels.reset_launches()
     out = fn(*args)
     torch.cuda.synchronize()
-    launches = dict(kernels.launches)
+    return out, dict(kernels.launches)
+
+
+def timed(fn, args, reps=3):
+    """Median host seconds of ``reps`` synchronized calls after a warm-up,
+    and the kernel launches of the warm-up call (``counted``). Returns the
+    warm-up's output."""
+    out, launches = counted(fn, *args)
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -3170,7 +3196,7 @@ def tile_kernel_ranges(inp) -> dict:
     whole-frame kernels' for those tiles bit for bit (rows outside the
     range's slots zero), the plain versions with the same base within
     phase 2's bounds, and each range's CUDA-event ms against its own
-    bound."""
+    bound and its plain version's."""
     from neuma_tpu_torch.render import raster_kernel as rk
 
     pf, start, counts, tx = inp["pf"], inp["tile_start"], inp["counts"], inp["tiles_x"]
@@ -3199,6 +3225,8 @@ def tile_kernel_ranges(inp) -> dict:
             k4_err=e4, last_mismatch=mismatch, k5_err=e5,
             k4_ms=cuda_ms(lambda: rk.composite_fwd(pf, ts, cn, tx, t0), 20),
             k5_ms=cuda_ms(lambda: rk.composite_bwd(*a5), 20),
+            k4_plain_ms=cuda_ms(lambda: rk.composite_fwd_plain(pf, ts, cn, tx, t0), 1),
+            k5_plain_ms=cuda_ms(lambda: rk.composite_bwd_plain(*a5), 1),
             k4_bound_ms=b4[0], k4_bound_by=b4[1], k5_bound_ms=b5[0], k5_bound_by=b5[1]))
         ok &= whole and e4 <= K4_TOL and mismatch == 0 and e5 <= K5_TOL
     a5 = (pf, start, counts, T, last, inp["dT"], inp["dC"], tx)
@@ -3215,8 +3243,8 @@ def tile_render_rank(device: str = "cuda", shape=None) -> dict:
     with respect to the means, covariances, opacity and SH, with the tiles
     over a one-axis mesh of the world, twice, against this process's
     unsharded render and gradient; the tile gathers' calls, bytes and host
-    seconds; then K4 and K5 alone on the rank's range of tiles (CUDA
-    events; the ranks share the card)."""
+    seconds; then K4 and K5 and their plain versions alone on the rank's
+    range of tiles (CUDA events; the ranks share the card)."""
     import hashlib
 
     import torch.distributed as dist
@@ -3278,10 +3306,14 @@ def tile_render_rank(device: str = "cuda", shape=None) -> dict:
         b4, b5 = composite_bounds(ts, cn, lr)
         k4_ms = cuda_ms(lambda: rk.composite_fwd(pf, ts, cn, tx, t0), 20) if card else None
         k5_ms = cuda_ms(lambda: rk.composite_bwd(*a5), 20) if card else None
+        k4_plain_ms = (cuda_ms(lambda: rk.composite_fwd_plain(pf, ts, cn, tx, t0), 1)
+                       if card else None)
+        k5_plain_ms = cuda_ms(lambda: rk.composite_bwd_plain(*a5), 1) if card else None
     return dict(rank=mesh.rank, tiles=[t0, t1], pairs=int(cn.sum()), digest=digest,
                 one_process_bitwise=equal(one, a["out"]), rerun_bitwise=equal(a["out"], b["out"]),
                 image_finite=bool(torch.isfinite(a["out"][0]).all()), ms=b["ms"], one_ms=one_ms,
                 launches=b["launches"], gathers=b["gathers"], k4_ms=k4_ms, k5_ms=k5_ms,
+                k4_plain_ms=k4_plain_ms, k5_plain_ms=k5_plain_ms,
                 k4_bound_ms=b4[0], k5_bound_ms=b5[0], pair_slots=int(pf.shape[0]))
 
 
@@ -3314,8 +3346,9 @@ def tile_phase(report) -> bool:
             f"whole-frame rows bitwise {r['whole_frame_bitwise']}; vs plain: K4 err "
             f"{r['k4_err']:.2e} (bound {K4_TOL:.0e}), last mismatches {r['last_mismatch']}, K5 "
             f"err {r['k5_err']:.2e} (bound {K5_TOL:.0e}); K4 {r['k4_ms']:.4f} ms (bound "
-            f"{r['k4_bound_ms']:.5f}, {r['k4_bound_by']}), K5 {r['k5_ms']:.4f} ms (bound "
-            f"{r['k5_bound_ms']:.5f}, {r['k5_bound_by']})")
+            f"{r['k4_bound_ms']:.5f}, {r['k4_bound_by']}; plain {r['k4_plain_ms']:.3f}), K5 "
+            f"{r['k5_ms']:.4f} ms (bound {r['k5_bound_ms']:.5f}, {r['k5_bound_by']}; plain "
+            f"{r['k5_plain_ms']:.3f})")
     log(f"[tiles:kernels] whole frame ({kr['tiles']} tiles, P = {kr['pair_slots']}): K4 "
         f"{kr['frame']['k4_ms']:.4f} ms, K5 {kr['frame']['k5_ms']:.4f} ms; ok {kr['ok']}")
 
@@ -3331,8 +3364,8 @@ def tile_phase(report) -> bool:
             f"value-and-grad {r['ms']:.2f} ms (one process {r['one_ms']:.2f}); gathers "
             f"{gx['calls']} calls, {gx['bytes'] / 1e6:.3f} MB sent, {gx['seconds'] * 1e3:.2f} ms "
             f"host incl. staging; launches {r['launches']}; K4 {r['k4_ms']:.4f} ms (bound "
-            f"{r['k4_bound_ms']:.5f}), K5 {r['k5_ms']:.4f} ms (bound {r['k5_bound_ms']:.5f}) "
-            f"on its range; one process's bits {r['one_process_bitwise']}, rerun bitwise "
+            f"{r['k4_bound_ms']:.5f}, plain {r['k4_plain_ms']:.3f}), K5 {r['k5_ms']:.4f} ms "
+            f"(bound {r['k5_bound_ms']:.5f}, plain {r['k5_plain_ms']:.3f}) on its range; one process's bits {r['one_process_bitwise']}, rerun bitwise "
             f"{r['rerun_bitwise']}")
     ok_b = (len({r["digest"] for r in renders}) == 1 and all(
         r["one_process_bitwise"] and r["rerun_bitwise"] and r["image_finite"]
@@ -3365,6 +3398,119 @@ def tile_phase(report) -> bool:
     ok = kr["ok"] and ok_b and ok_c and ok_d
     if not ok:
         log("[tiles] FAILED")
+    return ok
+
+
+# Phase 21: the jnp backend. 15 of the 18 configs under configs/ set
+# raster.max_per_tile, all to 512; 2,048 is above every tile's count at the
+# headline view (1,229 at rest).
+JNP_CAP = 512
+JNP_HIGH = 2048
+
+
+def jnp_phase(report, scenes, rec, init_v) -> bool:
+    """Phase 21: ``RasterConfig(backend="jnp")`` (see the module docstring)."""
+    from neuma_tpu_torch.render import raster_kernel as rk
+    from neuma_tpu_torch.render.rasterize import rasterize
+    from neuma_tpu_torch.train.grounding import BENCH_SHAPES, make_rollout_loss
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    hp = BENCH_SHAPES["headline"]
+    h = scenes["headline"]
+    frames = hp["frames"]
+
+    def with_jnp(scene, cap):
+        return dataclasses.replace(scene, raster_cfg=dataclasses.replace(
+            scene.raster_cfg, backend="jnp", max_per_tile=cap))
+
+    equal = lambda xs, ys: all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+    # (a) a cap above every tile: one render's value-and-grad and the
+    # rollout's, each bitwise the default path's
+    g, cam = h.gaussians, h.cameras[0]
+    w = torch.randn((3, cam.height, cam.width),
+                    generator=torch.Generator().manual_seed(21)).to("cuda")
+
+    def render_vg(scene):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (
+            g.xyz, g.get_covariance(h.scaling_modifier), g.get_opacity, g.get_features)]
+        img = rasterize(leaves[0], leaves[1], leaves[2], cam, h.background, shs=leaves[3],
+                        sh_degree=g.sh_degree, cfg=scene.raster_cfg)
+        return [img.detach()] + list(torch.autograd.grad((w * img).sum(), leaves))
+
+    h_high = with_jnp(h, JNP_HIGH)
+    render_auto = render_vg(h)
+    render_jnp, render_launches = counted(render_vg, h_high)
+    h_args = (init_v, torch.ones(frames, device="cuda"),
+              torch.zeros((frames, 1, 3, hp["height"], hp["width"]), device="cuda"))
+    loss_a, aux_a, grads_a = value_and_grad_fn(h, "cuda")(*h_args)
+    (loss_j, aux_j, grads_j), launches = counted(value_and_grad_fn(h_high, "cuda"), *h_args)
+    per_view = frames * hp["n_views"]
+    ok_a = (equal(render_auto, render_jnp) and bool(torch.equal(loss_a, loss_j))
+            and equal(grads_a, grads_j) and bool(aux_a["overflow"]) == bool(aux_j["overflow"])
+            and render_launches.get("composite") == 1 and render_launches.get("composite_bwd") == 1
+            and launches.get("composite") == per_view and launches.get("composite_bwd") == per_view)
+    log(f"[jnp:high] max_per_tile {JNP_HIGH}: one render's image and 4 gradients bitwise the "
+        f"default's {equal(render_auto, render_jnp)} (launches {render_launches}); rollout "
+        f"value-and-grad loss bitwise {bool(torch.equal(loss_a, loss_j))}, "
+        f"{sum(torch.equal(a, b) for a, b in zip(grads_a, grads_j))} of {len(grads_a)} "
+        f"gradient leaves bitwise, launches {launches} ({per_view} views rendered)")
+
+    # (b) the configs' cap at the headline and realworld first views
+    views = {}
+    ok_b = True
+    for tag in ("headline", "realworld"):
+        scene = scenes[tag]
+        full = composite_inputs(scene, torch.Generator().manual_seed(21))
+        cut = composite_inputs(scene, torch.Generator().manual_seed(21), max_per_tile=JNP_CAP)
+        ctag = f"{tag}_jnp{JNP_CAP}"
+        ok_b &= check_composite(ctag, cut, rec)
+        log_checks(ctag, rec, KERNELS[3:])
+        raw, kept = full["counts"].to(torch.int64), cut["counts"].to(torch.int64)
+        args = (full["pf"], full["tile_start"], full["counts"], full["tiles_x"])
+        with torch.no_grad():
+            T, _, lk = rk.composite_fwd(*args)
+            a5 = (*args[:3], T, lk, full["dT"], full["dC"], full["tiles_x"])
+            b4, b5 = composite_bounds(full["tile_start"], full["counts"], lk)
+            k4_ms = cuda_ms(lambda: rk.composite_fwd(*args), 20)
+            k5_ms = cuda_ms(lambda: rk.composite_bwd(*a5), 20)
+        c4, c5 = rec["composite"][ctag], rec["composite_bwd"][ctag]
+        v = dict(tiles=int(raw.numel()), tiles_cut=int((raw > JNP_CAP).sum()),
+                 pairs=int(raw.sum()), pairs_dropped=int(raw.sum() - kept.sum()),
+                 deepest_before=int(raw.max()), deepest_after=int(kept.max()),
+                 overflow_budget=full["raster_overflow"], overflow=cut["raster_overflow"],
+                 k4_ms=c4["ms"], k4_bound_ms=c4["bound_ms"], k5_ms=c5["ms"],
+                 k5_bound_ms=c5["bound_ms"], k4_ms_uncapped=k4_ms, k4_bound_ms_uncapped=b4[0],
+                 k5_ms_uncapped=k5_ms, k5_bound_ms_uncapped=b5[0])
+        views[tag] = v
+        ok_b &= v["overflow"]
+        log(f"[jnp:{tag}] max_per_tile {JNP_CAP}: {v['tiles_cut']} of {v['tiles']} tiles cut, "
+            f"{v['pairs_dropped']} of {v['pairs']} pairs dropped by the cap, deepest tile "
+            f"{v['deepest_before']} -> {v['deepest_after']}; overflow {v['overflow']} (max_pairs "
+            f"alone {v['overflow_budget']}); K4 {v['k4_ms']:.4f} ms (bound "
+            f"{v['k4_bound_ms']:.5f}) capped, {k4_ms:.4f} ms (bound {b4[0]:.5f}) uncapped; K5 "
+            f"{v['k5_ms']:.4f} ms (bound {v['k5_bound_ms']:.5f}) capped, {k5_ms:.4f} ms (bound "
+            f"{b5[0]:.5f}) uncapped; {smi}")
+
+    # (c) the headline rollout forward at the configs' cap
+    fwd = lambda scene: torch.no_grad()(make_rollout_loss(scene, device="cuda"))
+    (loss_c, aux_c), sec_c, launches_c = timed(fwd(with_jnp(h, JNP_CAP)), h_args)
+    _, sec_auto, _ = timed(fwd(h), h_args)
+    ms_c, ms_auto = sec_c / frames * 1e3, sec_auto / frames * 1e3
+    ok_c = bool(torch.isfinite(loss_c)) and bool(aux_c["overflow"])
+    log(f"[jnp:rollout] headline forward, max_per_tile {JNP_CAP}: loss {float(loss_c):.6f} "
+        f"overflow {bool(aux_c['overflow'])} {ms_c:.2f} ms/frame (auto now {ms_auto:.2f}, phase 3 "
+        f"{report['headline']['ms_per_frame']:.2f}) launches {launches_c}")
+    out = dict(nvidia_smi=smi, launches=launches, render_launches=render_launches, views=views,
+               rollout=dict(loss=float(loss_c), ms_per_frame=ms_c, auto_ms_per_frame=ms_auto,
+                            launches=launches_c),
+               seconds=time.perf_counter() - t_phase)
+    report["jnp"] = out
+    log(f"[jnp] {smi}; (a) {ok_a} (b) {ok_b} (c) {ok_c}; phase {out['seconds']:.1f} s")
+    ok = ok_a and ok_b and ok_c
+    if not ok:
+        log("[jnp] FAILED")
     return ok
 
 
@@ -3501,6 +3647,8 @@ def main() -> int:
     ok_e2e = ok_rep and smoke_e2e_phase(report)
     # 20. the image tiles over ranks
     ok_tiles = ok_e2e and tile_phase(report)
+    # 21. the jnp backend
+    ok_jnp = ok_tiles and jnp_phase(report, scenes, rec, init_v)
     report.update(kernels=rec, launches_train_headline=launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "build"
@@ -3510,7 +3658,7 @@ def main() -> int:
         log("[train] FAILED")
         return 1
     if not (ok_dense and ok_app and ok_serve and ok_regist and ok_view and ok_halo and ok_rep
-            and ok_e2e and ok_tiles):
+            and ok_e2e and ok_tiles and ok_jnp):
         return 1
 
     sources = {
@@ -3537,6 +3685,7 @@ def main() -> int:
                 report["replicated"]["four"]["ranks"][0]["launches"].get(name, 0),
             "launches_smoke_e2e": report["smoke_e2e"]["launches"].get(name, 0),
             "launches_tile_rank0": report["tiles"]["rollout"]["ranks"][0]["launches"].get(name, 0),
+            "launches_jnp": report["jnp"]["launches"].get(name, 0),
             "check": "pass", "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

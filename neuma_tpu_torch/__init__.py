@@ -21,10 +21,13 @@ backends of ``p2g`` and of the rasterizer, the end-to-end example
 view's image tiles split over a mesh axis (``RasterConfig.tile_sharding``:
 K4 and K5 over each rank's range of tiles), the multi-rank dry run,
 the speed-of-light model ``utils/roofline.py`` (the H100 SXM's peaks),
-and each subpackage's exports, name for name as in the JAX package.
-Left out by design: the JAX package's jnp raster backend, the raster
-knobs ``segment``, ``scale_modifier``, ``pair_grad`` and
-``pair_binning``, and ``ops/bitonic.py``.
+each subpackage's exports, name for name as in the JAX package, the
+JAX package's jnp raster backend (``RasterConfig(backend="jnp")``: each
+tile's depth list cut at ``max_per_tile``, composited by the same
+kernels), every field of its ``RasterConfig`` and ``ops/bitonic.py``.
+The port does everything the JAX package does; what it leaves out is
+that package's private JAX plumbing and its Pallas module, whose
+counterparts are ``csrc/`` and ``render/raster_kernel.py``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a CUDA device and without an explicit CPU request they raise.

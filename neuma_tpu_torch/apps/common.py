@@ -185,12 +185,11 @@ def assemble_scene(
     gt = dataset.stacked_gt(used_views, frame_steps, device=device)
     cameras = [c.to(device) for c in dataset.cameras_for(used_views)]
 
-    # raster.segment, the JAX package's jnp-backend remat knob, has no
-    # counterpart on the kernel path and is not read.
     rcfg = cfg.get("raster", Config())
     raster_cfg = RasterConfig(
         max_pairs=int(rcfg.get("max_pairs", 1 << 18)),
         max_per_tile=int(rcfg.get("max_per_tile", 512)),
+        segment=int(rcfg.get("segment", 32)),
     )
     scene = GroundingScene(
         constants=constants,

@@ -199,10 +199,9 @@ def load_scene(cfg: Config, eval_steps: int, debug_views=(), device=None) -> Inf
             )
         packs.append(pack)
 
-    # raster.segment (the JAX package's jnp-backend remat knob) is not read.
     raster = cfg.get("raster", {})
     rcfg = RasterConfig(max_pairs=int(raster.get("max_pairs", 1 << 18)),
-                        max_per_tile=int(raster.get("max_per_tile", 512)))
+                        max_per_tile=int(raster.get("max_per_tile", 512)), segment=32)
     cameras = {v: dataset.get(v, first_step).camera.to(device) for v in views}
     return InferenceScene(objs, packs, state0, statics, constants, elasticity, plasticity, rcfg,
                           cameras, background.to(device), denormalize, first_step)

@@ -120,7 +120,7 @@ def build_tiny_scene(n_particles=128, grid=16, frames=2, substeps=1, img=32, see
         constants=constants, statics=statics, elasticity=materials[0], plasticity=materials[1],
         gaussians=gaussians, binding=table, cameras=cams, init_x=f32(pts), size=np.ones(3),
         center=np.zeros(3), background=torch.ones(3, device=device), substeps=substeps,
-        pixel_loss="l2", raster_cfg=RasterConfig(max_pairs=8192, max_per_tile=64),
+        pixel_loss="l2", raster_cfg=RasterConfig(max_pairs=8192, max_per_tile=64, segment=16),
     )
     return scene, torch.zeros((frames, n_views, 3, img, img), device=device)
 

@@ -1,14 +1,15 @@
-"""Tile-based 3D Gaussian splatting rasterizer, kernel backend.
+"""Tile-based 3D Gaussian splatting rasterizer on the tile-composite kernels.
 
 Counterpart of ``neuma_tpu/render/rasterize.py``: ``RasterConfig``,
 ``_project`` (EWA projection with the 1.3x tan-fov clamp and the +0.3
-low-pass), ``_sh_colors``, ``_tile_ranges``, ``_build_aligned_pairs``,
-the pair-feature gather ``_gather_pair_feats``, the kernel branch of
-``rasterize_with_aux`` and ``rasterize`` (the same without the aux).
-Pairs are binned by one stable sort by tile id over depth-ordered pairs (the JAX package states that counting and
-sorting give identical tile lists), each tile range is padded to a
-multiple of ``CHUNK`` = 32, and the composite runs in K4 forward and K5
-backward (``raster_kernel.composite_pairs``).
+low-pass), ``_sh_colors``, ``_tile_ranges``, ``_build_aligned_pairs``
+(with ``max_per_tile``, also ``_build_tile_lists``'s cut), the
+pair-feature gather ``_gather_pair_feats``, ``rasterize_with_aux`` and
+``rasterize`` (the same without the aux). Pairs are binned by one
+stable sort by tile id over depth-ordered pairs, each tile range is
+padded to a multiple of ``CHUNK`` = 32, and the composite runs in K4
+forward and K5 backward (``raster_kernel.composite_pairs``) on every
+backend.
 
 The transpose of the pair-feature gather (many pairs per Gaussian) is
 the JAX package's scatter-free ``pair_grad='segsum'`` reduction: the pair
@@ -17,18 +18,35 @@ where each Gaussian's pairs form one contiguous run, each run is summed
 by a segmented doubling in a fixed order, and the depth sort is undone
 by a gather. No atomics, so the gradient repeats bit for bit on the card.
 
-``RasterConfig.backend`` says where the composite runs: ``"auto"`` runs
-K4/K5 on CUDA tensors and their plain versions on CPU tensors;
-``"pallas"`` asks for the kernels and raises on CPU tensors;
-``"pallas_interpret"`` asks for the plain versions (the JAX package's
-interpreter for debugging its kernels) and raises on CUDA tensors. The
-JAX package's ``"jnp"`` backend, its ``pair_grad`` and ``pair_binning``
-strategies, ``segment`` and ``scale_modifier`` are left out by design:
-the kernel path is the one composite, with the one binning and the one
-transpose above.
+``RasterConfig.backend`` says where the composite runs and on which
+pair lists: ``"auto"`` runs K4/K5 on CUDA tensors and their plain
+versions on CPU tensors, over every tile's whole depth list, as the TPU
+path computes; the port is held to that path. ``"jnp"`` is the JAX
+package's jnp backend, which that package runs on every device that is
+not a TPU (an H100 included): each tile's depth-ordered list is cut
+after its first ``max_per_tile`` pairs (``_build_tile_lists``) and
+``overflow`` also fires when a tile held more; the same K4/K5 (plain
+versions on CPU tensors) composite and differentiate the cut lists, to
+rounding the jnp scan's function (it forms the transmittance by prefix
+products where K4 walks the slots). A user who wants the JAX package's
+images on a GPU asks for ``"jnp"``. ``"pallas"`` asks for the kernels
+and raises on CPU tensors; ``"pallas_interpret"`` asks for the plain
+versions (the JAX package's interpreter for debugging its kernels) and
+raises on CUDA tensors.
+
+The other knobs of the JAX package's ``RasterConfig`` are accepted,
+validated with its messages, and compute nothing different:
+``pair_binning`` (that package states that its counting and sort
+binners give identical tile lists; the port keeps its one stable sort),
+``pair_grad`` (its ``scatter`` and ``segsum`` transposes give the same
+gradient; the port runs the ordered segmented sum above for both,
+since a scatter-add on the card would be a float atomic and break the
+bitwise rerun), ``segment`` (the jnp scan's remat length, which changes
+no value; K4/K5 rematerialise nothing per segment) and
+``scale_modifier`` (stored and read nowhere, as in that package).
 
 ``RasterConfig.tile_sharding`` (``parallel.sharding.tile_sharding(mesh,
-axis)``) splits the image tiles over a mesh axis on that kernel path,
+axis)``) splits the image tiles over a mesh axis on every backend,
 where the JAX package splits its jnp composite: every rank of the axis
 builds the same pairs (the Gaussian tables stay replicated), composites
 its contiguous range of tiles and gathers T and C over the axis, so
@@ -59,18 +77,23 @@ if TYPE_CHECKING:
     from ..parallel.sharding import TileSharding
 
 TILE = 16
-BACKENDS = ("auto", "pallas", "pallas_interpret")
+BACKENDS = ("auto", "jnp", "pallas", "pallas_interpret")
 
 
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:
-    """Static rasterization bounds and backend choice (per scene)."""
+    """Static rasterization bounds and backend choice (per scene); the
+    JAX package's fields, defaults and order (module docstring)."""
 
     max_pairs: int = 262144  # total (gaussian, tile) pairs after culling
-    # The JAX package's jnp-backend depth bound; scene configs carry it,
-    # the kernel path walks each tile's true count and never reads it.
-    max_per_tile: int = 1024
-    backend: str = "auto"  # 'auto' | 'pallas' | 'pallas_interpret' (module docstring)
+    max_per_tile: int = 1024  # compositing depth per tile (jnp backend)
+    segment: int = 32  # the JAX package's jnp scan remat length; changes no value
+    scale_modifier: float = 1.0  # stored, read nowhere (as in the JAX package)
+    backend: str = "auto"  # 'auto' | 'jnp' | 'pallas' | 'pallas_interpret'
+    # 'scatter' | 'segsum': the same gradient; both run the ordered segmented sum.
+    pair_grad: str = "scatter"
+    # 'auto' | 'counting' | 'sort': the same tile lists; all run the one stable sort.
+    pair_binning: str = "auto"
     # Image-tile sharding over a mesh axis (parallel/sharding.py::tile_sharding;
     # module docstring). None: one process composites every tile.
     tile_sharding: Optional["TileSharding"] = None
@@ -83,6 +106,10 @@ class RasterConfig:
             )
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend: {self.backend!r}")
+        if self.pair_binning not in ("auto", "counting", "sort"):
+            raise ValueError(f"unknown pair_binning: {self.pair_binning!r}")
+        if self.pair_grad not in ("scatter", "segsum"):
+            raise ValueError(f"unknown pair_grad: {self.pair_grad!r}")
 
 
 def _project(means3d: torch.Tensor, cov3d: torch.Tensor, camera: Camera):
@@ -172,17 +199,26 @@ def _tile_ranges(mean2d, radius, width: int, height: int):
 
 
 def _build_aligned_pairs(
-    depth, visible, mean2d, radius, width, height, cfg: RasterConfig, with_glue: bool = False
+    depth, visible, mean2d, radius, width, height, cfg: RasterConfig, with_glue: bool = False,
+    max_per_tile: Optional[int] = None,
 ):
     """Per-tile contiguous pair ranges in depth order, each padded to a
     multiple of CHUNK. Returns (pair_gid (P,), counts (T,), tile_start
-    (T+1,), tiles_x, tiles_y, overflow) with P = max_pairs + CHUNK * T;
-    pad slots hold gaussian 0 and are masked by the true counts. With
-    ``with_glue`` a seventh item carries the integer layout of the
-    gather's transpose: the final slot of each pre-binned pair (P where
-    it was dropped), its run id, each depth-sorted Gaussian's run bounds
-    and the inverse depth order."""
-    if cfg.max_pairs % CHUNK:
+    (T+1,), tiles_x, tiles_y, overflow) with P = max_pairs + CHUNK * T
+    (max_pairs rounded up to CHUNK); pad slots hold gaussian 0 and are
+    masked by the counts. With ``with_glue`` a seventh item carries the
+    integer layout of the gather's transpose: the final slot of each
+    pre-binned pair (P where it was dropped), its run id, each
+    depth-sorted Gaussian's run bounds and the inverse depth order.
+
+    With ``max_per_tile`` (the jnp backend) each tile keeps its first
+    ``max_per_tile`` pairs in depth order, as the JAX package's
+    ``_build_tile_lists`` cuts them: a cut pair goes to the dropped slot,
+    ``counts`` are the kept counts and ``overflow`` also fires when any
+    tile held more. Without it every tile keeps all its pairs, and
+    ``max_pairs`` must be a multiple of CHUNK (the guard of the JAX
+    package's ``_build_aligned_pairs``)."""
+    if max_per_tile is None and cfg.max_pairs % CHUNK:
         raise ValueError(
             f"max_pairs ({cfg.max_pairs}) must be a multiple of the kernel "
             f"CHUNK ({CHUNK}) so tile ranges stay CHUNK-aligned"
@@ -220,17 +256,22 @@ def _build_aligned_pairs(
         sorted_tile, torch.arange(num_tiles + 1, device=dev), right=False
     )
     counts = raw_start[1:] - raw_start[:-1]
+    overflow = offsets[-1] > cfg.max_pairs
+    valid_s = sorted_tile < num_tiles
+    ts = torch.clamp(sorted_tile, max=num_tiles - 1)
+    slot = pair_idx - raw_start[ts]  # each pair's depth rank within its tile
+    if max_per_tile is not None:
+        overflow = overflow | (counts > max_per_tile).any()
+        counts = torch.clamp(counts, max=max_per_tile)
+        valid_s = valid_s & (slot < max_per_tile)
 
     aligned = ((counts + CHUNK - 1) // CHUNK) * CHUNK
     tile_start = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(aligned, 0)])
-    P = cfg.max_pairs + CHUNK * num_tiles
-    valid_s = sorted_tile < num_tiles
-    ts = torch.clamp(sorted_tile, max=num_tiles - 1)
-    dest = torch.where(valid_s, tile_start[ts] + (pair_idx - raw_start[ts]), P)
+    P = -(-cfg.max_pairs // CHUNK) * CHUNK + CHUNK * num_tiles
+    dest = torch.where(valid_s, tile_start[ts] + slot, P)
     # Live pairs land on distinct slots; the rest share the dropped slot P.
     pair_gid = torch.zeros(P + 1, dtype=torch.int64, device=dev)
     pair_gid[dest] = sorted_gid
-    overflow = offsets[-1] > cfg.max_pairs
     out = (pair_gid[:P], counts, tile_start, tiles_x, tiles_y, overflow)
     if not with_glue:
         return out
@@ -309,18 +350,20 @@ def rasterize_with_aux(
     cfg: RasterConfig = RasterConfig(),
 ) -> Tuple[torch.Tensor, dict]:
     """Render a (3, H, W) image; ``aux["overflow"]`` is a device bool
-    that fires when pairs past ``max_pairs`` were dropped.
+    that fires when pairs were dropped: past ``max_pairs``, or (backend
+    ``"jnp"``) past ``max_per_tile`` in a tile.
 
     With ``cfg.tile_sharding`` every rank of its axis must call this with
     the same inputs: each composites its range of the tiles, and each
     returns the whole image, bit for bit one process's. Differentiated
     through a loss that every rank of the axis computes alike, every rank
     gets one process's gradient of every input (the module docstring)."""
-    if cfg.backend != "auto" and means3d.is_cuda != (cfg.backend == "pallas"):
+    if cfg.backend.startswith("pallas") and means3d.is_cuda != (cfg.backend == "pallas"):
         want = "CUDA" if cfg.backend == "pallas" else "CPU"
         raise RuntimeError(
             f"RasterConfig(backend={cfg.backend!r}) needs {want} tensors: 'pallas' runs the "
-            "CUDA kernels K4/K5, 'pallas_interpret' their plain versions, 'auto' picks by device"
+            "CUDA kernels K4/K5, 'pallas_interpret' their plain versions, 'auto' and 'jnp' pick "
+            "by device"
         )
     opacity = opacity.reshape(-1)
     depth, visible, mean2d, conic, radius = _project(means3d, cov3d, camera)
@@ -333,7 +376,8 @@ def rasterize_with_aux(
     # The gather's transpose glue is built only when a backward may run.
     with_glue = torch.is_grad_enabled()
     pairs = _build_aligned_pairs(
-        depth, visible, mean2d, radius, camera.width, camera.height, cfg, with_glue=with_glue
+        depth, visible, mean2d, radius, camera.width, camera.height, cfg, with_glue=with_glue,
+        max_per_tile=cfg.max_per_tile if cfg.backend == "jnp" else None,
     )
     pair_gid, counts, tile_start, tiles_x, tiles_y, overflow = pairs[:6]
     feats = torch.cat([mean2d, conic, opacity[:, None], colors], dim=1)

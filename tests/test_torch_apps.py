@@ -103,11 +103,28 @@ def test_assemble_scene_matches_jax(run3):
                                       np.asarray(getattr(jscene.cameras[0], name)))
     np.testing.assert_array_equal(scene.size, jscene.size)
     np.testing.assert_array_equal(scene.center, jscene.center)
-    assert (scene.raster_cfg.max_pairs, scene.raster_cfg.max_per_tile) == (
-        jscene.raster_cfg.max_pairs, jscene.raster_cfg.max_per_tile)
+    rc, jrc = scene.raster_cfg, jscene.raster_cfg
+    assert (rc.max_pairs, rc.max_per_tile, rc.segment) == (
+        jrc.max_pairs, jrc.max_per_tile, jrc.segment)
     assert tuple(scene.exclude_frames) == tuple(jscene.exclude_frames) == (1,)
     assert (scene.substeps, scene.scaling_modifier, scene.force_mask_data) == (
         jscene.substeps, jscene.scaling_modifier, jscene.force_mask_data)
+
+
+def test_assemble_scene_reads_raster_segment(run3):
+    """A config's ``raster.segment`` reaches ``RasterConfig.segment``, as in
+    the JAX package's ``assemble_scene``."""
+    root, cfg_path, _ = run3
+    cfg = load_config(cfg_path, ["raster.segment=8"])
+    bg, force_mask = common.background_color(cfg)
+    e, p = common.build_materials(cfg)
+    con = cfg.constitution
+    scene, _, _ = common.assemble_scene(
+        cfg, root / "sim_data", VideoDataset(cfg.video_data.to_dict()), e, p, background=bg,
+        device="cpu", num_frames=int(con.num_frames), substeps=int(con.substeps),
+        used_views=con.views, pixel_loss="l2", force_mask=force_mask)
+    assert scene.raster_cfg.segment == 8
+    assert scene.raster_cfg.backend == "auto"
 
 
 def _rows(exp_root):

@@ -9,8 +9,8 @@ the CPU, the same numpy inputs):
 * the rasterizer's kernel path against the JAX package's interpreted
   kernels: image and the gradients with respect to means, covariances,
   opacities and SH, with and without ``overflow``;
-* ``RasterConfig.backend`` on CPU tensors, and ``RasterConfig``'s fields
-  and validation against the JAX package's.
+* ``RasterConfig.backend`` on CPU tensors, and ``RasterConfig``'s fields,
+  defaults and validation messages against the JAX package's.
 """
 import dataclasses
 import importlib
@@ -159,10 +159,16 @@ def raster_scene():
     return dict(cam=cam, tcam=interop.camera_from_numpy(_np(cam)), bg=bg, w=w, inputs=inputs)
 
 
+def _colour_kw(sc, last):
+    """The last input as SH (degree 1), or as precomputed colours where the
+    scene says ``colors``."""
+    return dict(colors_precomp=last) if sc.get("colors") else dict(shs=last, sh_degree=1)
+
+
 def _jax_value_and_grad(sc, cfg):
     def loss(m, c, o, s):
-        img, aux = jras.rasterize_with_aux(m, c, o, sc["cam"], jnp.asarray(sc["bg"]), shs=s,
-                                           sh_degree=1, cfg=cfg)
+        img, aux = jras.rasterize_with_aux(m, c, o, sc["cam"], jnp.asarray(sc["bg"]), cfg=cfg,
+                                           **_colour_kw(sc, s))
         return jnp.sum(jnp.asarray(sc["w"]) * img), (img, aux["overflow"])
 
     (_, (img, ovf)), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2, 3),
@@ -173,8 +179,8 @@ def _jax_value_and_grad(sc, cfg):
 def _port_value_and_grad(sc, cfg):
     leaves = [torch.from_numpy(a.copy()).requires_grad_(True) for a in sc["inputs"]]
     img, aux = tras.rasterize_with_aux(leaves[0], leaves[1], leaves[2], sc["tcam"],
-                                       torch.from_numpy(sc["bg"]), shs=leaves[3], sh_degree=1,
-                                       cfg=cfg)
+                                       torch.from_numpy(sc["bg"]), cfg=cfg,
+                                       **_colour_kw(sc, leaves[3]))
     grads = torch.autograd.grad((torch.from_numpy(sc["w"]) * img).sum(), leaves)
     return img.detach().numpy(), bool(aux["overflow"]), [a.numpy() for a in grads]
 
@@ -216,29 +222,35 @@ def test_backend_choice_on_the_cpu(raster_scene):
 
 
 def test_raster_config_validation_matches_jax():
-    """The port's fields keep the JAX package's defaults, and an unknown
-    backend fails with its message. ``tile_sharding`` takes the port's
-    ``parallel.sharding.tile_sharding``. Its jnp backend, ``segment``,
-    ``scale_modifier``, ``pair_grad`` and ``pair_binning`` are not ported:
-    the value and the fields are refused."""
+    """The port's ``RasterConfig`` has the JAX package's fields, in its
+    order and with its defaults; every bad ``backend``, ``pair_binning``
+    and ``pair_grad`` fails with its message; ``"jnp"`` and every value of
+    ``segment``, ``scale_modifier``, ``pair_grad`` and ``pair_binning``
+    that it accepts are accepted. ``tile_sharding`` takes the port's
+    ``parallel.sharding.tile_sharding``."""
     from neuma_tpu_torch.parallel.distributed import Mesh
     from neuma_tpu_torch.parallel.sharding import TileSharding, tile_sharding
 
-    fields = {f.name for f in dataclasses.fields(tras.RasterConfig)}
-    assert fields == {"max_pairs", "max_per_tile", "backend", "tile_sharding"}
+    names = [f.name for f in dataclasses.fields(tras.RasterConfig)]
+    assert names == [f.name for f in dataclasses.fields(jras.RasterConfig)]
+    assert names == ["max_pairs", "max_per_tile", "segment", "scale_modifier", "backend",
+                     "pair_grad", "pair_binning", "tile_sharding"]
+    for name in names:
+        assert getattr(tras.RasterConfig(), name) == getattr(jras.RasterConfig(), name), name
     mesh = Mesh(("dp",), (1,))
     cfg = tras.RasterConfig(tile_sharding=tile_sharding(mesh))
     assert cfg.tile_sharding == TileSharding(mesh, "dp")
-    for name in fields:
-        assert getattr(tras.RasterConfig(), name) == getattr(jras.RasterConfig(), name), name
-    with pytest.raises(ValueError) as want:
-        jras.RasterConfig(backend="cuda")
-    for backend in ("cuda", "jnp"):
+    for field, bad in (("backend", "cuda"), ("backend", "JNP"), ("backend", ""),
+                       ("pair_binning", "radix"), ("pair_binning", "Sort"),
+                       ("pair_grad", "atomic"), ("pair_grad", "segment")):
+        with pytest.raises(ValueError) as want:
+            jras.RasterConfig(**{field: bad})
         with pytest.raises(ValueError) as got:
-            tras.RasterConfig(backend=backend)
-        assert str(got.value) == str(want.value).replace("cuda", backend)
-    for kw in (dict(segment=32), dict(scale_modifier=1.0), dict(pair_grad="segsum"),
-               dict(pair_binning="sort")):
-        jras.RasterConfig(**kw)
-        with pytest.raises(TypeError):
-            tras.RasterConfig(**kw)
+            tras.RasterConfig(**{field: bad})
+        assert str(got.value) == str(want.value), (field, bad)
+    for field, good in (("backend", "jnp"), ("segment", 16), ("scale_modifier", 0.5),
+                        ("pair_grad", "segsum"), ("pair_grad", "scatter"),
+                        ("pair_binning", "sort"), ("pair_binning", "counting"),
+                        ("pair_binning", "auto")):
+        assert getattr(tras.RasterConfig(**{field: good}), field) == good
+        assert getattr(jras.RasterConfig(**{field: good}), field) == good
