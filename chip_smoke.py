@@ -2711,6 +2711,14 @@ def halo_capacity(scene, n_shards: int):
     return counts.tolist(), -(-int(counts.max()) * 5 // 4 // 128) * 128
 
 
+def counter_family(prefix: str) -> dict:
+    """``calls``, ``bytes`` and host ``seconds`` of one family of the
+    port's counters (``halo_exchange``, ``grid_sum``, ``tile_gather``)."""
+    from neuma_tpu_torch.utils.profiling import counters
+
+    return {k: counters[f"{prefix}.{k}"] for k in ("calls", "bytes", "seconds")}
+
+
 def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
               grid_mode: str = "halo", tiles: bool = False) -> dict:
     """17b/17c, 18 and 20c, what each rank runs: the value-and-grad on the
@@ -2726,21 +2734,21 @@ def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
     import torch.distributed as dist
 
     from neuma_tpu_torch import kernels
-    from neuma_tpu_torch.parallel import halo, sharding
+    from neuma_tpu_torch.parallel import sharding
     from neuma_tpu_torch.parallel.distributed import Mesh
-    from neuma_tpu_torch.render import raster_kernel as rk
     from neuma_tpu_torch.train.grounding import rank_views
+    from neuma_tpu_torch.utils.profiling import reset_counters
 
     world = dist.get_world_size()
     mesh = Mesh(("dp",), (world,))
     scene, v0, gt = halo_scene(device, shape)
     if grid_mode == "halo":
         counts, capacity = halo_capacity(scene, world)
-        stats, reset_stats = halo.exchange_stats, halo.reset_exchange_stats
+        family = "halo_exchange"
     else:  # particle shards of the padded count
         shard = -(-scene.init_x.shape[0] // world)
         counts, capacity = [min(shard, scene.init_x.shape[0] - r * shard) for r in range(world)], shard
-        stats, reset_stats = sharding.grid_sum_stats, sharding.reset_grid_sum_stats
+        family = "grid_sum"
     scene = dataclasses.replace(scene, mesh=mesh, particle_axis="dp", grid_mode=grid_mode,
                                 halo_capacity=capacity if grid_mode == "halo" else None)
     if tiles:
@@ -2751,14 +2759,14 @@ def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
     card = device == "cuda"
     sync = torch.cuda.synchronize if card else (lambda: None)
     # the forward alone: the collectives' bytes and host seconds per substep
-    reset_stats()
+    reset_counters()
     sync()
     t0 = time.perf_counter()
     with torch.no_grad():
         loss_fn(v0, torch.ones(frames, device=device), gt)
     sync()
     fwd_ms = (time.perf_counter() - t0) / frames * 1e3
-    fwd_x = dict(stats)
+    fwd_x = counter_family(family)
     # rank 0 profiles one more forward, device activity only (its own
     # kernels: the card is shared); the others run it too, so the
     # collectives line up
@@ -2784,8 +2792,7 @@ def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
     runs = []
     for _ in range(2):
         kernels.reset_launches()
-        reset_stats()
-        rk.reset_tile_gather_stats()
+        reset_counters()
         if card:
             torch.cuda.reset_peak_memory_stats()
         sync()
@@ -2794,7 +2801,8 @@ def mesh_rank(device: str = "cuda", shape=None, profile: bool = False,
         sync()
         runs.append(dict(ms=(time.perf_counter() - t0) / frames * 1e3, loss=loss.cpu(),
                          grads=[g.cpu() for g in grads], launches=dict(kernels.launches),
-                         exchange=dict(stats), tile_gathers=dict(rk.tile_gather_stats),
+                         exchange=counter_family(family),
+                         tile_gathers=counter_family("tile_gather"),
                          overflow=bool(aux["overflow"]), halo_overflow=bool(aux["halo_overflow"]),
                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30 if card else 0.0))
     a, b = runs
@@ -3255,6 +3263,7 @@ def tile_render_rank(device: str = "cuda", shape=None) -> dict:
     from neuma_tpu_torch.render import raster_kernel as rk
     from neuma_tpu_torch.render.rasterize import rasterize
     from neuma_tpu_torch.train.grounding import BENCH_SHAPES, build_scene
+    from neuma_tpu_torch.utils.profiling import reset_counters
 
     world = dist.get_world_size()
     mesh = Mesh(("dp",), (world,))
@@ -3279,13 +3288,13 @@ def tile_render_rank(device: str = "cuda", shape=None) -> dict:
     runs = []
     for _ in range(2):
         kernels.reset_launches()
-        rk.reset_tile_gather_stats()
+        reset_counters()
         sync()
         t0 = time.perf_counter()
         out = value_and_grad(cfg_t)
         sync()
         runs.append(dict(out=out, ms=(time.perf_counter() - t0) * 1e3,
-                         launches=dict(kernels.launches), gathers=dict(rk.tile_gather_stats)))
+                         launches=dict(kernels.launches), gathers=counter_family("tile_gather")))
     sync()
     t0 = time.perf_counter()
     value_and_grad(scene.raster_cfg)

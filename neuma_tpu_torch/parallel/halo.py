@@ -33,8 +33,8 @@ A rank steps its own bin; ``gather_bins`` puts the bins back on every
 rank by an all-gather whose backward is a reduce-scatter, so that each
 rank's cotangent of every bin reaches the bin's owner once.
 
-``exchange_stats`` counts the exchanges' bytes sent per rank and host
-seconds (staging included).
+``halo_exchange.*`` in ``utils.profiling.counters`` counts the exchanges,
+their bytes sent per rank and host seconds (staging included).
 """
 from __future__ import annotations
 
@@ -49,15 +49,10 @@ from ..core.types import GridGeom, MPMConstants, ParticleState, Statics
 from ..sim.blocked import _blocked, apic_scatter
 from ..sim.mpm import _g2p_tail, _p2g_terms, g2p_core, grid_op, scrub_cotangents
 from ..sim.p2g_kernel import build_step_layouts
+from ..utils.profiling import counters
 from .distributed import Mesh
 
 HALO = 2  # cells of halo on each side of a slab
-
-exchange_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
-
-
-def reset_exchange_stats() -> None:
-    exchange_stats.update(calls=0, bytes=0, seconds=0.0)
 
 
 def slab_width(num_grids: int, n_shards: int) -> int:
@@ -181,10 +176,10 @@ class _Exchange(torch.autograd.Function):
 def _timed_exchange(mesh: Mesh, axis: str, to_left, to_right):
     t0 = time.perf_counter()
     out = mesh.exchange(axis, to_left, to_right)
-    exchange_stats["calls"] += 1
-    exchange_stats["bytes"] += sum(t.numel() * t.element_size() for t in (to_left, to_right)
-                                   if t is not None)
-    exchange_stats["seconds"] += time.perf_counter() - t0
+    counters["halo_exchange.calls"] += 1
+    counters["halo_exchange.bytes"] += sum(t.numel() * t.element_size() for t in (to_left, to_right)
+                                           if t is not None)
+    counters["halo_exchange.seconds"] += time.perf_counter() - t0
     return out
 
 

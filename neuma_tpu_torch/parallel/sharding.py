@@ -28,13 +28,8 @@ import torch
 
 from ..core.types import MPMConstants, ParticleState, Statics
 from ..sim.mpm import mpm_step_diff
+from ..utils.profiling import counters
 from .distributed import Mesh, global_mesh
-
-grid_sum_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
-
-
-def reset_grid_sum_stats() -> None:
-    grid_sum_stats.update(calls=0, bytes=0, seconds=0.0)
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "dp") -> Mesh:
@@ -108,14 +103,15 @@ def particle_grid_sum(mesh: Mesh, axis: str = "dp"):
     axis)`` (rank order): the step applies it to K1's per-block sums (or
     the dense grid) in the forward and to the grid cotangent in the
     backward. Each call adds its tensor's bytes and its host seconds
-    (staging and waiting on the peers included) to ``grid_sum_stats``."""
+    (staging and waiting on the peers included) to ``grid_sum.*`` in
+    ``utils.profiling.counters``."""
 
     def grid_sum(t: torch.Tensor) -> torch.Tensor:
         t0 = time.perf_counter()
         out = mesh.all_sum(t, axis)
-        grid_sum_stats["calls"] += 1
-        grid_sum_stats["bytes"] += t.numel() * t.element_size()
-        grid_sum_stats["seconds"] += time.perf_counter() - t0
+        counters["grid_sum.calls"] += 1
+        counters["grid_sum.bytes"] += t.numel() * t.element_size()
+        counters["grid_sum.seconds"] += time.perf_counter() - t0
         return out
 
     return grid_sum

@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .gaussians import GaussianPack, strip_symmetric, unstrip_symmetric
 
 CHI2_95_3 = 7.814727903251179  # chi2.ppf(0.95, 3)
@@ -168,6 +169,7 @@ def binding_flags(
     return table.counts() > 0
 
 
+@span("binding.xyz")
 def apply_binding_xyz(table: BindingTable, p_curr, p_prev, k_prev) -> torch.Tensor:
     """Incremental kernel advection: k_prev + B @ (p_curr - p_prev), with
     ``p_prev`` and ``k_prev`` detached (reference stop-gradients)."""
@@ -180,12 +182,14 @@ def apply_binding_xyz(table: BindingTable, p_curr, p_prev, k_prev) -> torch.Tens
     return k_prev.detach() + moved
 
 
+@span("binding.F")
 def apply_binding_F(table: BindingTable, deform_grad: torch.Tensor) -> torch.Tensor:
     """Kernel deformation gradient = weighted particle F."""
     gathered = deform_grad.reshape(-1, 9)[table.indices]
     return torch.einsum("km,kmc->kc", table.weights, gathered).reshape(-1, 3, 3)
 
 
+@span("binding.cov")
 def deform_cov_by_F(cov3d: torch.Tensor, F: torch.Tensor, stop_gradient: bool = True) -> torch.Tensor:
     """Sigma' = F Sigma F^T, symmetrized and packed to 6; with
     ``stop_gradient`` (the reference's default) both inputs are detached."""

@@ -42,6 +42,7 @@ import time
 import torch
 
 from .. import kernels
+from ..utils.profiling import counters, span
 
 TILE = 16
 PIX = TILE * TILE
@@ -254,6 +255,7 @@ class _CompositePairs(torch.autograd.Function):
         return T, C
 
     @staticmethod
+    @span("raster.composite.bwd")
     def backward(ctx, dT, dC):
         pair_feats, tile_start, tile_counts, T, last = ctx.saved_tensors
         d_pf = composite_bwd(
@@ -269,15 +271,6 @@ def composite_pairs(pair_feats, tile_start, tile_counts, tiles_x: int):
     return _CompositePairs.apply(pair_feats, tile_start, tile_counts, tiles_x)
 
 
-# The tile-sharded composite's gathers: calls, bytes sent by this rank and
-# host seconds (staging and waiting on the peers included).
-tile_gather_stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
-
-
-def reset_tile_gather_stats() -> None:
-    tile_gather_stats.update(calls=0, bytes=0, seconds=0.0)
-
-
 def tile_range(num_tiles: int, size: int, coord: int):
     """``(t0, t1, k)``: the contiguous tiles ``[t0, t1)`` that coordinate
     ``coord`` of an axis of ``size`` owns, ``k = ceil(num_tiles / size)``
@@ -289,11 +282,14 @@ def tile_range(num_tiles: int, size: int, coord: int):
 
 
 def _timed_gather(mesh, axis, t):
+    """The tile-sharded composite's gather, counted as ``tile_gather.*``
+    in ``utils.profiling.counters``: calls, bytes sent by this rank and
+    host seconds (staging and waiting on the peers included)."""
     start = time.perf_counter()
     parts = mesh.all_gather(t.contiguous(), axis)
-    tile_gather_stats["calls"] += 1
-    tile_gather_stats["bytes"] += t.numel() * t.element_size()
-    tile_gather_stats["seconds"] += time.perf_counter() - start
+    counters["tile_gather.calls"] += 1
+    counters["tile_gather.bytes"] += t.numel() * t.element_size()
+    counters["tile_gather.seconds"] += time.perf_counter() - start
     return parts
 
 
@@ -322,6 +318,7 @@ class _TileShardedComposite(torch.autograd.Function):
         return full[:, :PIX].contiguous(), full[:, PIX:].contiguous()
 
     @staticmethod
+    @span("raster.composite.bwd")
     def backward(ctx, dT, dC):
         pair_feats, ts, cn, T, last = ctx.saved_tensors
         tiles_x, mesh, axis, t0, t1 = ctx.meta

@@ -70,6 +70,7 @@ from typing import TYPE_CHECKING, Optional, Tuple
 import torch
 
 from ..ops.sh import sh_basis
+from ..utils.profiling import span
 from .camera import Camera
 from .raster_kernel import CHUNK, PIX, composite_pairs, composite_pairs_sharded
 
@@ -295,6 +296,7 @@ class _GatherPairFeats(torch.autograd.Function):
         return feats[pair_gid]
 
     @staticmethod
+    @span("raster.composite.bwd")
     def backward(ctx, d_pf):
         final_of_orig, run_id, g_starts, g_ends, inv_order = ctx.glue
         max_pairs = final_of_orig.shape[0]
@@ -338,6 +340,7 @@ def rasterize(
     return img
 
 
+@span("raster.view")
 def rasterize_with_aux(
     means3d: torch.Tensor,
     cov3d: torch.Tensor,
@@ -365,30 +368,32 @@ def rasterize_with_aux(
             "CUDA kernels K4/K5, 'pallas_interpret' their plain versions, 'auto' and 'jnp' pick "
             "by device"
         )
-    opacity = opacity.reshape(-1)
-    depth, visible, mean2d, conic, radius = _project(means3d, cov3d, camera)
-    if colors_precomp is not None:
-        colors = colors_precomp
-    else:
-        assert shs is not None, "need shs or colors_precomp"
-        colors = _sh_colors(shs, means3d, camera.camera_center, sh_degree)
+    with span("raster.pairs"):
+        opacity = opacity.reshape(-1)
+        depth, visible, mean2d, conic, radius = _project(means3d, cov3d, camera)
+        if colors_precomp is not None:
+            colors = colors_precomp
+        else:
+            assert shs is not None, "need shs or colors_precomp"
+            colors = _sh_colors(shs, means3d, camera.camera_center, sh_degree)
 
-    # The gather's transpose glue is built only when a backward may run.
-    with_glue = torch.is_grad_enabled()
-    pairs = _build_aligned_pairs(
-        depth, visible, mean2d, radius, camera.width, camera.height, cfg, with_glue=with_glue,
-        max_per_tile=cfg.max_per_tile if cfg.backend == "jnp" else None,
-    )
-    pair_gid, counts, tile_start, tiles_x, tiles_y, overflow = pairs[:6]
-    feats = torch.cat([mean2d, conic, opacity[:, None], colors], dim=1)
-    pair_feats = _gather_pair_feats(feats, pair_gid, pairs[6]) if with_glue else feats[pair_gid]
-    composite_args = (pair_feats.contiguous(), tile_start.to(torch.int32),
-                      counts.to(torch.int32), tiles_x)
-    if cfg.tile_sharding is None:
-        T, Cflat = composite_pairs(*composite_args)
-    else:
-        T, Cflat = composite_pairs_sharded(*composite_args, cfg.tile_sharding.mesh,
-                                           cfg.tile_sharding.axis)
+        # The gather's transpose glue is built only when a backward may run.
+        with_glue = torch.is_grad_enabled()
+        pairs = _build_aligned_pairs(
+            depth, visible, mean2d, radius, camera.width, camera.height, cfg, with_glue=with_glue,
+            max_per_tile=cfg.max_per_tile if cfg.backend == "jnp" else None,
+        )
+        pair_gid, counts, tile_start, tiles_x, tiles_y, overflow = pairs[:6]
+        feats = torch.cat([mean2d, conic, opacity[:, None], colors], dim=1)
+        pair_feats = _gather_pair_feats(feats, pair_gid, pairs[6]) if with_glue else feats[pair_gid]
+        composite_args = (pair_feats.contiguous(), tile_start.to(torch.int32),
+                          counts.to(torch.int32), tiles_x)
+    with span("raster.composite"):
+        if cfg.tile_sharding is None:
+            T, Cflat = composite_pairs(*composite_args)
+        else:
+            T, Cflat = composite_pairs_sharded(*composite_args, cfg.tile_sharding.mesh,
+                                               cfg.tile_sharding.axis)
 
     def assemble(flat):  # (num_tiles, PIX) -> (H', W')
         t = flat.reshape(tiles_y, tiles_x, TILE, TILE)

@@ -50,6 +50,7 @@ import torch
 from torch import nn
 
 from ..core.types import GridGeom, MPMConstants, ParticleState, Statics
+from ..utils.profiling import span
 from .blocked import (
     _apic_bwd_dual_impl,
     _blocked,
@@ -474,6 +475,7 @@ def _step_sort(constants: MPMConstants, x: torch.Tensor):
     return build_step_layouts(constants, x) if _slab_grid(constants) else None
 
 
+@span("mpm.step")
 def _step_fwd(constants, statics, state, stress, sort, grid_sum=None):
     """The step on its branch. Returns (out_state, grid residuals, new_v,
     new_C): the residuals are (slabs_mmv,) on the slab branch and
@@ -561,6 +563,7 @@ def _grid_bwd_dense(constants, x, grid_m, grid_mv, mass, b, affine, d_new_v, A2,
     return _apic_bwd_dual_impl(constants, x, mass, b, affine, d_m, d_mv, d_new_v, A2, grid_v)
 
 
+@span("mpm.step.bwd")
 def _step_bwd(constants, statics, state, stress, sort, grid_res, new_v, new_C, g, grid_sum=None):
     """Direct adjoint of ``_step_fwd`` for the output cotangent ``g`` (a
     ``ParticleState``), on the branch ``_step_fwd`` took. With
@@ -672,27 +675,33 @@ class _PackedSubstep(torch.autograd.Function):
     def forward(ctx, step, sort, x, v, C, F, *params):
         constants, statics, elasticity, plasticity, grid_sum = step
         state = ParticleState(x, v, C, F)
-        stress = elasticity(F)
+        with span("material.elasticity"):
+            stress = elasticity(F)
         out, grid_res, new_v, new_C = _step_fwd(constants, statics, state, stress, sort,
                                                 grid_sum)
         f2 = out.F
         ctx.save_for_backward(x, v, C, F, stress, new_v, new_C, f2, *grid_res)
         ctx.step, ctx.sort = step, sort
-        return out.x, out.v, out.C, plasticity(f2)
+        with span("material.plasticity"):
+            f_out = plasticity(f2)
+        return out.x, out.v, out.C, f_out
 
     @staticmethod
+    @span("mpm.substep.bwd")
     def backward(ctx, gx, gv, gC, gF):
         x, v, C, F, stress, new_v, new_C, f2, *grid_res = ctx.saved_tensors
         constants, statics, elasticity, plasticity, grid_sum = ctx.step
         e_params, p_params = trainable_params(elasticity), trainable_params(plasticity)
         # Each material's vjp from a recompute of its forward.
-        _, (d_f2,), d_pp = _vjp(plasticity, (f2,), (gF,), p_params)
+        with span("material.plasticity"):
+            _, (d_f2,), d_pp = _vjp(plasticity, (f2,), (gF,), p_params)
         state = ParticleState(x, v, C, F)
         d_s, d_stress = _step_bwd(
             constants, statics, state, stress, ctx.sort, grid_res, new_v, new_C,
             ParticleState(gx, gv, gC, d_f2), grid_sum,
         )
-        _, (d_f_e,), d_pe = _vjp(elasticity, (F,), (d_stress,), e_params)
+        with span("material.elasticity"):
+            _, (d_f_e,), d_pe = _vjp(elasticity, (F,), (d_stress,), e_params)
         return (None, None, d_s.x, d_s.v, d_s.C, d_s.F + d_f_e, *d_pe, *d_pp)
 
 
@@ -707,6 +716,7 @@ def make_packed_substep(constants: MPMConstants, statics: Statics, elasticity, p
     shard's and ``grid_sum`` adds the ranks' grid partials and grid
     cotangents (``mpm_step_diff``)."""
 
+    @span("mpm.substep")
     def substep(s: ParticleState, layouts) -> ParticleState:
         if layouts is None:
             layouts = _step_sort(constants, s.x)

@@ -44,6 +44,7 @@ import torch
 
 from .. import kernels
 from ..core.types import GridGeom, MPMConstants, geom_dims
+from ..utils.profiling import counters, span
 
 BLOCK = 14
 S = BLOCK + 2  # 16: padded block side; S^2 = 256 lanes
@@ -184,6 +185,7 @@ def build_chunk_layout(
     return layout, sort.base, sort.fx, sort.loc
 
 
+@span("mpm.layouts")
 def build_step_layouts(constants: MPMConstants, x: torch.Tensor,
                        geom: Optional[GridGeom] = None) -> StepLayouts:
     """Block sort and chunk carving of ``x.detach()`` in the ``geom``
@@ -203,12 +205,17 @@ def refresh_step_layouts(
     only the elementwise geometry), else rebuild. A Python ``if`` on
     ``(bid == stale.sort.bid).all()`` takes the place of ``lax.cond``:
     one host sync per substep. Runs on ``x.detach()``. Returns
-    ``(layouts, reused)``."""
+    ``(layouts, reused)``; counts ``layouts.refreshed`` and, for a
+    rebuild, ``layouts.rebuilt`` in ``utils.profiling.counters``."""
+    counters["layouts.refreshed"] += 1
     x = x.detach()
-    base, fx, loc, bid, _ = _sort_geometry(constants, x)
-    if bool(torch.equal(bid, stale.sort.bid)):
+    with span("mpm.layouts"):
+        base, fx, loc, bid, _ = _sort_geometry(constants, x)
+        same = bool(torch.equal(bid, stale.sort.bid))
+    if same:
         sort = stale.sort._replace(base=base, fx=fx, loc=loc)
         return StepLayouts(sort, stale.scatter, stale.gather), True
+    counters["layouts.rebuilt"] += 1
     return build_step_layouts(constants, x), False
 
 

@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.types import MPMConstants, ParticleState, Statics
+from ..utils.profiling import span
 from .mpm import mpm_step, mpm_step_diff
 from .p2g_kernel import build_step_layouts, refresh_step_layouts
 
@@ -37,9 +38,11 @@ def make_step_fn(
     step_impl = mpm_step_diff if diff else mpm_step
 
     def step(state: ParticleState, sort=None) -> ParticleState:
-        stress = elasticity(state.F)
+        with span("material.elasticity"):
+            stress = elasticity(state.F)
         state = step_impl(constants, statics, state, stress, sort)
-        return dataclasses.replace(state, F=plasticity(state.F))
+        with span("material.plasticity"):
+            return dataclasses.replace(state, F=plasticity(state.F))
 
     return step
 

@@ -108,6 +108,7 @@ from ..render.rasterize import RasterConfig, rasterize_with_aux
 from ..sim.mpm import _step_sort, make_packed_substep, trainable_params
 from ..sim.p2g_kernel import refresh_step_layouts
 from ..sim.rollout import denormalize_points
+from ..utils.profiling import span
 from .checkpoint import load_into, load_train_state, save_train_state
 from .losses import l1_loss, l2_loss
 from .optim import apply_updates, clip_by_global_norm_strict, radam
@@ -328,6 +329,7 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
             state = substep(state, layouts)
         return state, layouts
 
+    @span("loss.frame")
     def frame_body(state, layouts, de_x_prev, g_prev, gt_frame):
         state, layouts = substeps(state, layouts)
         return (state, layouts) + render_frame(state, de_x_prev, g_prev, gt_frame)
@@ -341,9 +343,11 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         bins, bin_statics, valid = shard_of(part, shard)
         margin = torch.zeros((), dtype=torch.bool, device=device)
         for _ in range(scene.substeps):
-            stress = torch.where(valid[:, None, None], scene.elasticity(bins.F), 0.0)
+            with span("material.elasticity"):
+                stress = torch.where(valid[:, None, None], scene.elasticity(bins.F), 0.0)
             bins, bad = halo_step(bin_statics, bins, stress)
-            bins = dataclasses.replace(bins, F=scene.plasticity(bins.F))
+            with span("material.plasticity"):
+                bins = dataclasses.replace(bins, F=scene.plasticity(bins.F))
             margin = margin | bad
         gathered = gather_bins(mesh, sim_axis, bins)
         out = unpartition(dataclasses.replace(part, state=gathered), n_particles, state)
@@ -380,17 +384,18 @@ def make_rollout_loss(scene: GroundingScene, device=None) -> Callable:
         frame_losses, overflows, halo_flags = [], [], []
         for f in range(n_frames):
             if mesh_sim is not None:
-                args = (state.x, state.v, state.C, state.F, layouts)
-                if remat:  # the sim's collectives rerun in the same order on every rank
-                    with set_checkpoint_early_stop(False):
-                        *parts, layouts, halo_flag = checkpoint(mesh_sim, *args,
-                                                                use_reentrant=False)
-                else:
-                    *parts, layouts, halo_flag = mesh_sim(*args)
-                state = ParticleState(*parts)
-                if halo_flag is not None:
-                    halo_flags.append(halo_flag)
-                out = render_frame(state, de_x_prev, g_prev, gt_images[f])
+                with span("loss.frame"):
+                    args = (state.x, state.v, state.C, state.F, layouts)
+                    if remat:  # the sim's collectives rerun in the same order on every rank
+                        with set_checkpoint_early_stop(False):
+                            *parts, layouts, halo_flag = checkpoint(mesh_sim, *args,
+                                                                    use_reentrant=False)
+                    else:
+                        *parts, layouts, halo_flag = mesh_sim(*args)
+                    state = ParticleState(*parts)
+                    if halo_flag is not None:
+                        halo_flags.append(halo_flag)
+                    out = render_frame(state, de_x_prev, g_prev, gt_images[f])
             else:
                 args = (state, layouts, de_x_prev, g_prev, gt_images[f])
                 if remat:
@@ -635,42 +640,48 @@ def finetune_constitutive(
     for epoch in range(start_epoch, num_epochs + 1):
         decay_rate = decay_rate_for_epoch(cfg, epoch, num_epochs)
         weights = rollout_decay_weights(gt.shape[0], decay_rate, decay_steps)
-        loss, aux = loss_fn(init_v, weights, gt)
-        grads = _sum_over_ranks(scene, torch.autograd.grad(loss, e_params + p_params))
+        with span("train.loss"):
+            loss, aux = loss_fn(init_v, weights, gt)
+        with span("train.grad"):
+            grads = _sum_over_ranks(scene, torch.autograd.grad(loss, e_params + p_params))
         loss = loss.detach()
-        ge, e_norm, e_bad = clip_by_global_norm_strict(grads[: len(e_params)], e_max_norm)
-        gp, p_norm, p_bad = clip_by_global_norm_strict(grads[len(e_params) :], p_max_norm)
-        bad = bool(e_bad | p_bad)
-        if bad and on_nonfinite == "skip":
-            ge = [torch.zeros_like(g) for g in ge]
-            gp = [torch.zeros_like(g) for g in gp]
-        e_updates, e_state = e_opt.update(ge, e_state, e_params)
-        p_updates, p_state = p_opt.update(gp, p_state, p_params)
-        if bad:
-            consecutive_bad += 1
-            if on_nonfinite == "raise" or consecutive_bad > max_skips:
-                raise NonFiniteGradientError(
-                    f"non-finite gradient at epoch {epoch}: "
-                    f"loss={float(loss):.7f} e_norm={float(e_norm)} p_norm={float(p_norm)}"
-                    + (f" ({consecutive_bad} consecutive skipped epochs exceeded "
-                       f"max_nonfinite_skips={max_skips})" if on_nonfinite == "skip" else "")
+        with span("train.optim"):
+            ge, e_norm, e_bad = clip_by_global_norm_strict(grads[: len(e_params)], e_max_norm)
+            gp, p_norm, p_bad = clip_by_global_norm_strict(grads[len(e_params) :], p_max_norm)
+            with span("train.read"):
+                bad = bool(e_bad | p_bad)
+            if bad and on_nonfinite == "skip":
+                ge = [torch.zeros_like(g) for g in ge]
+                gp = [torch.zeros_like(g) for g in gp]
+            e_updates, e_state = e_opt.update(ge, e_state, e_params)
+            p_updates, p_state = p_opt.update(gp, p_state, p_params)
+            if bad:
+                consecutive_bad += 1
+                if on_nonfinite == "raise" or consecutive_bad > max_skips:
+                    raise NonFiniteGradientError(
+                        f"non-finite gradient at epoch {epoch}: "
+                        f"loss={float(loss):.7f} e_norm={float(e_norm)} p_norm={float(p_norm)}"
+                        + (f" ({consecutive_bad} consecutive skipped epochs exceeded "
+                           f"max_nonfinite_skips={max_skips})" if on_nonfinite == "skip" else "")
+                    )
+                print(
+                    f"[grounding] non-finite gradient at epoch {epoch} "
+                    f"(e_norm={float(e_norm)}, p_norm={float(p_norm)}) — "
+                    f"update skipped ({consecutive_bad}/{max_skips})",
+                    file=sys.stderr,
                 )
-            print(
-                f"[grounding] non-finite gradient at epoch {epoch} "
-                f"(e_norm={float(e_norm)}, p_norm={float(p_norm)}) — "
-                f"update skipped ({consecutive_bad}/{max_skips})",
-                file=sys.stderr,
-            )
-        else:
-            consecutive_bad = 0
-        apply_updates(e_params, e_updates)
-        apply_updates(p_params, p_updates)
-        _raise_on_overflow(aux, f"constitutive epoch {epoch}")
-        losses.append(float(loss))
-        e_norms.append(float(e_norm))
-        p_norms.append(float(p_norm))
+            else:
+                consecutive_bad = 0
+            apply_updates(e_params, e_updates)
+            apply_updates(p_params, p_updates)
+        # the host reads close before ``log_fn``, which may start or stop a trace
+        with span("train.read"):
+            _raise_on_overflow(aux, f"constitutive epoch {epoch}")
+            losses.append(float(loss))
+            e_norms.append(float(e_norm))
+            p_norms.append(float(p_norm))
         if log_fn:
-            log_fn(epoch, float(loss), float(e_norm), float(p_norm), decay_rate,
+            log_fn(epoch, losses[-1], e_norms[-1], p_norms[-1], decay_rate,
                    float(e_sched(epoch - 1)), float(p_sched(epoch - 1)))
         at_ckpt = epoch == 1 or epoch % 10 == 0 or epoch == num_epochs
         if checkpoint_fn and at_ckpt:

@@ -1,4 +1,5 @@
-"""Phase timers that wait for the card, and an optional profiler trace.
+"""Phase timers that wait for the card, an optional profiler trace, and
+the port's spans and counters.
 
 Counterpart of ``neuma_tpu/utils/profiling.py``: ``device_sync``,
 ``PhaseTimer`` (the same accumulation and ``report()`` format) and
@@ -9,17 +10,72 @@ package syncs by fetching a scalar, ``device_sync`` calls
     timer = PhaseTimer()
     with timer.phase("sim", out=state): ...
     print(timer.report())
+
+``span(name)`` marks a layer of the port (``<layer>.<what>``: ``train.*``,
+``loss.frame``, ``material.*``, ``mpm.*``, ``binding.*``, ``raster.*``) in
+a profiler trace without waiting for the card; ``counters`` holds the
+port's always-on counts (``layouts.*``, ``grid_sum.*``,
+``halo_exchange.*``, ``tile_gather.*``: ``calls``, ``bytes`` and host
+``seconds`` of the collectives).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+counters: Counter = Counter()
+
+
+def reset_counters() -> None:
+    counters.clear()
+
+
+class span:
+    """A named span of the port, as a context manager or a decorator.
+
+    With no profiler running it reads one flag and does nothing else. With
+    one running it records the span as an operation of the host thread
+    (``torch._C._profiler._RecordFunctionFast``), in the same trace and on
+    the same clock as the device operations it launches. It is not
+    ``torch.profiler.record_function``: that one is a user annotation,
+    which the trace copies onto the device's timeline, where a reader of
+    the device's operations would count it as device time."""
+
+    __slots__ = ("name", "_record")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._record = None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._record = torch._C._profiler._RecordFunctionFast(self.name)
+            self._record.__enter__()
+
+    def __exit__(self, *exc):
+        if self._record is not None:
+            record, self._record = self._record, None
+            record.__exit__(*exc)
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with torch._C._profiler._RecordFunctionFast(name):
+                return fn(*args, **kwargs)
+
+        return spanned
 
 
 def _first_tensor(x):

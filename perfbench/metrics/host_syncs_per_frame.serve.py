@@ -1,0 +1,7 @@
+"""Blocking runtime calls inside the port's spans per served frame of the
+traced frames (layer: host dispatch)."""
+from perfbench.metrics._spans import syncs_per_frame
+
+
+def read(ctx):
+    return syncs_per_frame(ctx, "serve")

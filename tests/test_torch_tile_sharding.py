@@ -38,6 +38,7 @@ from neuma_tpu_torch.render.camera import Camera
 from neuma_tpu_torch.render.gaussians import create_from_points
 from neuma_tpu_torch.render.rasterize import RasterConfig, rasterize
 from neuma_tpu_torch.train.grounding import make_rollout_loss, rank_views
+from neuma_tpu_torch.utils import profiling
 from test_torch_parallel import _hold_rollout, rollout_scene, rollout_value_and_grad
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -123,9 +124,9 @@ def rank_checks():
     for case in RENDER_CASES:
         name, axis, width, height = case
         cfg = RasterConfig(**RENDER_CFG, tile_sharding=tile_sharding(meshes[name], axis))
-        rk.reset_tile_gather_stats()
+        profiling.reset_counters()
         res["render"][case] = render_value_and_grad(render_scene(width, height), cfg)
-        res["stats"][case] = dict(rk.tile_gather_stats)
+        res["stats"][case] = {"calls": profiling.counters["tile_gather.calls"]}
     mesh = meshes["dpvp"]
     res["rollout"], res["views"] = {}, {}
     for case in ROLLOUT_CASES:
