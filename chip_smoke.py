@@ -23,6 +23,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
    block, slab cells read; K4: the tiles' pair counts, the pixels that stop on the 1e-4
    test, the (tile, segment) items and those walked again, the scratch
    bytes; K5: the tiles' walk lengths and the (tile, segment) work items).
+   2b. K6 (svd3) and K7 (svd3_bwd) against their plain versions (the
+   component SVD on the card) at the bench's 30,000 matrices, bit for bit
+   and repeatable, each timed beside its bound, its plain version and
+   ``torch.linalg.svd`` (``report["svd3"]``).
 3. Headline forward (10k particles, 32^3 grid, one 800x800 view, 4
    frames x 1 substep) under ``torch.no_grad()``: loss, overflow,
    ms/frame (median of 3 after a warm-up) and the forward's launch counts
@@ -692,6 +696,58 @@ def check_and_time(tag, inp, rec, composite: bool = True):
         f"pairs, max_pairs {inp['max_pairs']}: overflow {inp['raster_overflow']}")
     log_checks(tag, rec, KERNELS)
     return ok
+
+
+SVD3_N = 30000  # the bench's particles (perfbench/configs/bun.json)
+# Float operations per matrix, counted from csrc/svd3.cu: K6 18 rotations of
+# ~69 and ~110 for sigma, the sort, U and the signs; K7 ~430.
+SVD3_OPS = {"svd3": 18 * 69 + 110, "svd3_bwd": 430}
+# Bytes per matrix: K6 9 floats in, 21 out; K7 21 + 21 in, 9 out.
+SVD3_BYTES = {"svd3": (9 + 21) * 4, "svd3_bwd": (21 + 21 + 9) * 4}
+
+
+def svd3_checks(report, n: int = SVD3_N) -> bool:
+    """2b. K6 (``svd3``) and K7 (``svd3_bwd``) against their plain
+    versions (the component path on the card) on n matrices F = I + 0.05 N
+    (the sim's regime) given as the strided views of one (n, 9) buffer, and
+    21 random cotangents: bit for bit, and bit for bit on a second launch.
+    Each is timed (CUDA-event mean of 200 wrapper calls, device time by
+    torch.profiler) beside its bound, its plain version's ms and, as the
+    library's yardstick (other conventions; the port never calls it),
+    ``torch.linalg.svd`` on the (n, 3, 3) tensor and its backward."""
+    from neuma_tpu_torch.ops.svd3 import (run_svd3_bwd, run_svd3_fwd, svd3_bwd_plain,
+                                          svd3_fwd_plain, unpack33)
+
+    gen = torch.Generator().manual_seed(20)
+    F = (torch.eye(3) + 0.05 * torch.randn((n, 3, 3), generator=gen)).cuda()
+    F9 = unpack33(F)
+    cots = list(torch.randn((21, n), generator=gen).cuda())
+    bits = lambda t: t.contiguous().view(torch.int32)
+    out, ref = run_svd3_fwd(F9), svd3_fwd_plain(F9)
+    dA, dA_ref = run_svd3_bwd(out, cots), svd3_bwd_plain(ref, cots)
+    equal = {"svd3": bool(torch.equal(bits(out), bits(ref))),
+             "svd3_bwd": bool(torch.equal(bits(dA), bits(dA_ref)))}
+    repeat = {"svd3": bool(torch.equal(bits(out), bits(run_svd3_fwd(F9)))),
+              "svd3_bwd": bool(torch.equal(bits(dA), bits(run_svd3_bwd(out, cots))))}
+    Fg = F.clone().requires_grad_(True)
+    lib = torch.linalg.svd(Fg)
+    lib_cots = [torch.randn_like(t) for t in lib]
+    calls = {"svd3": (lambda: run_svd3_fwd(F9), lambda: svd3_fwd_plain(F9),
+                      lambda: torch.linalg.svd(F)),
+             "svd3_bwd": (lambda: run_svd3_bwd(out, cots), lambda: svd3_bwd_plain(ref, cots),
+                          lambda: torch.autograd.grad(lib, Fg, lib_cots, retain_graph=True))}
+    rec = {}
+    for name, (kernel, plain, library) in calls.items():
+        bound = bound_ms(n * SVD3_BYTES[name], n * SVD3_OPS[name])
+        rec[name] = dict(n=n, bitwise=equal[name], repeats=repeat[name],
+                         ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 5),
+                         library_ms=cuda_ms(library, 20), bound_ms=bound[0], bound_by=bound[1],
+                         device_rows=device_rows(kernel))
+        log(f"[{name}] n {n} bitwise {equal[name]} repeats {repeat[name]} ms {rec[name]['ms']:.4f} "
+            f"plain {rec[name]['plain_ms']:.3f} library {rec[name]['library_ms']:.3f} bound "
+            f"{bound[0]:.5f} ({bound[1]}) device {rec[name]['device_rows']}")
+    report["svd3"] = rec
+    return all(equal.values()) and all(repeat.values())
 
 
 def composite_bounds(tile_start, counts, lk):
@@ -3561,6 +3617,7 @@ def main() -> int:
         scenes[tag] = build_scene(**{k: v for k, v in p.items() if k != "frames"},
                                   seed=0, device="cuda")
         ok &= check_and_time(tag, kernel_inputs(scenes[tag], gen), rec)
+    ok &= svd3_checks(report)
     if not ok:
         log("[check] FAILED")
         return 1

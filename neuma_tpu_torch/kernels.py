@@ -9,8 +9,9 @@ the flags, so an edited source rebuilds. Nothing here runs at import
 time: the CPU tests import every module and never build.
 
 ``launches`` counts kernel launches by name (``p2g`` K1, ``g2p`` K2,
-``g2p_derivs`` K3, ``composite`` K4, ``composite_bwd`` K5); each wrapper
-adds one where it launches its kernel and nowhere else.
+``g2p_derivs`` K3, ``composite`` K4, ``composite_bwd`` K5, ``svd3`` K6,
+``svd3_bwd`` K7); each wrapper adds one where it launches its kernel and
+nowhere else.
 """
 from __future__ import annotations
 
@@ -51,6 +52,10 @@ _SIGNATURES = {
     # pair_feats, tile_start, counts, num_tiles, tiles_x, tile_base, T, last, dT, dC,
     # out, scratch, P, stream
     "neuma_composite_bwd": [P, P, P, I, I, I, P, P, P, P, P, P, I, P],
+    # ptrs (9 host-side addresses), strides (9 int64), N, out (21, N), stream
+    "neuma_svd3_fwd": [P, P, I, P, P],
+    # saved (21, N), ptrs (21; 0 = zero cotangent), strides (21 int64), N, out (9, N), stream
+    "neuma_svd3_bwd": [P, P, P, I, P, P],
     # 4-byte words of the scratch each kernel needs: (M, NB), (P, num_tiles)
     "neuma_p2g_scratch_words": [I, I],
     "neuma_composite_fwd_scratch_words": [I, I],

@@ -10,12 +10,20 @@ used. ``svd3c`` is a ``torch.autograd.Function`` whose backward is the
 JAX package's closed-form adjoint (``_svd3c_bwd``), with the
 ``F_ij = sign(diff) / max(|diff|, 1e-10)`` clamp for near-equal singular
 values; autograd through the Jacobi sweeps would give other values there.
+
+On CUDA tensors the forward and the adjoint are one launch each of K6 and
+K7 (``csrc/svd3.cu``), which repeat the component code below operation for
+operation; that code is their plain version and runs on CPU tensors.
 """
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import List, Sequence, Tuple
 
 import torch
+
+from .. import kernels
 
 _JACOBI_SWEEPS = 6
 
@@ -152,9 +160,93 @@ def _svd3c_bwd(u9, s3, vh9, du9, ds3, dvh9):
     return tuple(dA9)
 
 
+def _addresses(ts):
+    """Each tensor's address and element stride as ctypes arrays, with
+    ``None`` as address 0. Every tensor is 1-D."""
+    ptrs = (ctypes.c_void_p * len(ts))(*[0 if t is None else t.data_ptr() for t in ts])
+    strides = (ctypes.c_int64 * len(ts))(*[0 if t is None else t.stride(0) for t in ts])
+    return ptrs, strides
+
+
+def _batch(ts, name: str, shape=None, device=None):
+    """Check that the tensors of ``ts`` not None are float32 CUDA tensors
+    of one shape on one device (by default the first one's); that shape
+    and their 1-D forms (a view where one stride walks the tensor, else a
+    copy)."""
+    live = [t for t in ts if t is not None]
+    shape = tuple(live[0].shape) if shape is None else tuple(shape)
+    device = live[0].device if device is None else device
+    for t in live:
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name} must be CUDA tensors on {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must all have shape {shape}, got {tuple(t.shape)}")
+    if math.prod(shape) >= 2 ** 31:
+        raise ValueError(f"{name}: {math.prod(shape)} matrices exceed the kernels' int32 count")
+    return shape, [t if t is None or t.dim() == 1 else t.reshape(-1) for t in ts]
+
+
+def run_svd3_fwd(F9: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K6: nine float32 CUDA components ``F9[3r+c] = A[..., r, c]`` ->
+    one (21, ...) buffer: rows 0-8 ``u9``, 9-11 ``s3``, 12-20 ``vh9``, as
+    ``_svd3c_fwd_impl`` gives them. N = 0 launches nothing."""
+    shape, flat = _batch(F9, "F9")
+    out = torch.empty((21, *shape), dtype=torch.float32, device=F9[0].device)
+    n = math.prod(shape)
+    if n:
+        rc = kernels.library().neuma_svd3_fwd(*_addresses(flat), n, out.data_ptr(),
+                                              kernels.stream(out.device))
+        kernels.check(rc, "neuma_svd3_fwd")
+        kernels.launches["svd3"] += 1
+    return out
+
+
+def run_svd3_bwd(saved: torch.Tensor, cots: Sequence) -> torch.Tensor:
+    """K7: K6's (21, ...) buffer and the 21 cotangents of its rows
+    (``None`` counts as zero) -> (9, ...) ``dA9``, as ``_svd3c_bwd``
+    gives it. N = 0 launches nothing."""
+    shape = tuple(saved.shape[1:])
+    kernels.require(saved, "saved", (21, *shape), torch.float32)
+    out = torch.empty((9, *shape), dtype=torch.float32, device=saved.device)
+    _, flat = _batch(cots, "cotangents", shape, saved.device)
+    n = math.prod(shape)
+    if n:
+        rc = kernels.library().neuma_svd3_bwd(saved.data_ptr(), *_addresses(flat), n,
+                                              out.data_ptr(), kernels.stream(out.device))
+        kernels.check(rc, "neuma_svd3_bwd")
+        kernels.launches["svd3_bwd"] += 1
+    return out
+
+
+def svd3_fwd_plain(F9: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain version of K6: the component code's factors stacked as K6
+    writes them."""
+    u9, s3, vh9 = _svd3c_fwd_impl(F9)
+    return torch.stack([*u9, *s3, *vh9])
+
+
+def svd3_bwd_plain(saved: torch.Tensor, cots: Sequence) -> torch.Tensor:
+    """Plain version of K7: ``_svd3c_bwd`` on the rows of K6's buffer,
+    stacked."""
+    rows = saved.unbind(0)
+    return torch.stack(_svd3c_bwd(rows[:9], rows[9:12], rows[12:], cots[:9], cots[9:12],
+                                  cots[12:]))
+
+
+def _on_card(F9) -> bool:
+    return any(t.is_cuda for t in F9)
+
+
 class _Svd3c(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *F9):
+        ctx.set_materialize_grads(False)  # a None cotangent counts as zero
+        if _on_card(F9):
+            buf = run_svd3_fwd(F9)
+            ctx.save_for_backward(buf)
+            return tuple(buf.unbind(0))
         u9, s3, vh9 = _svd3c_fwd_impl(F9)
         ctx.save_for_backward(*u9, *s3, *vh9)
         return (*u9, *s3, *vh9)
@@ -162,6 +254,8 @@ class _Svd3c(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *cots):
         saved = ctx.saved_tensors
+        if len(saved) == 1:
+            return tuple(run_svd3_bwd(saved[0], cots).unbind(0))
         return _svd3c_bwd(saved[:9], saved[9:12], saved[12:], cots[:9], cots[9:12], cots[12:])
 
 

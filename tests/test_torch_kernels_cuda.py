@@ -33,6 +33,9 @@ and a scaled 1e-4 per parameter, bitwise repeatable; SSIM and LPIPS-VGG
 on the card within rtol 1e-5 and 1e-4 of the CPU with TF32 off. K4 and
 K5 over ranges of a frame's tiles (a tile base, as tile sharding runs
 them) give the whole-frame kernels' rows of those tiles bit for bit.
+K6 and K7 (the batched 3x3 SVD and its adjoint) agree bit for bit with the
+component code run on the card, alone, through autograd and inside the
+materials, and repeat bit for bit.
 """
 import numpy as np
 import pytest
@@ -623,8 +626,181 @@ def test_kernels_on_out_of_view_lines_and_halo_views(cuda):
     assert all(r["nbs"] == [2, 5, 5] for r in out["views"])
     assert out["views"][-1]["taps_outside"] > 0 and out["planted"]["rows_planted"] > 0
     for r in out["views"]:
-        assert r["p2g_err"] <= 1e-5 and r["g2p_err"] <= 1e-5 and r["g2p_derivs_err"] <= 1e-5, r
+        assert r["p2g"]["err"] <= 1e-5 and r["g2p"]["err"] <= 1e-5, r
+        assert r["g2p_derivs"]["err"] <= 1e-5, r
     pl = out["planted"]
     assert pl["p2g_err"] <= 1e-5 and pl["p2g_bitwise"], pl
     assert pl["g2p_err"] <= 1e-5 and pl["g2p_derivs_err"] <= 1e-5, pl
     assert out["ok"]
+
+
+# --------------------------------------------------------------------------
+# K6 / K7: the batched 3x3 SVD and its adjoint, bit for bit the component
+# path (``svd3_fwd_plain`` / ``svd3_bwd_plain``) run on the card
+# --------------------------------------------------------------------------
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _rotations(rng, n):
+    q, _ = np.linalg.qr(rng.standard_normal((n, 3, 3)))
+    return q * np.sign(np.linalg.det(q))[:, None, None]
+
+
+def _svd_matrices(case, n, seed=0):
+    """(n, 3, 3) float32 F: near identity (the sim's regime), random well
+    conditioned (sigma in [0.5, 2]), repeated singular values (I,
+    diag(2, 2, 1)), a collapsed third column (sigma[2] < 1e-8: U's
+    cross-product column), det F < 0, and tiny F with near-equal sigma
+    (the adjoint's 1e-10 clamp)."""
+    rng = np.random.default_rng(seed)
+    if case == "near_identity":
+        F = np.eye(3) + 0.05 * rng.standard_normal((n, 3, 3))
+    elif case == "conditioned":
+        F = _rotations(rng, n) @ (rng.uniform(0.5, 2.0, (n, 3))[:, :, None]
+                                  * _rotations(rng, n))
+    elif case == "identity":
+        F = np.tile(np.eye(3), (n, 1, 1))
+    elif case == "diag221":
+        F = np.tile(np.diag([2.0, 2.0, 1.0]), (n, 1, 1))
+    elif case == "collapsed":
+        F = np.eye(3) + 0.3 * rng.standard_normal((n, 3, 3))
+        F[:, :, 2] = 0.0
+    elif case == "negdet":
+        F = np.eye(3) + 0.2 * rng.standard_normal((n, 3, 3))
+        F[:, :, 0] *= -1.0
+    elif case == "near_equal":
+        F = 1e-5 * (_rotations(rng, n) @ (np.array([1.0, 1.0 + 1e-3, 0.5])[:, None]
+                                          * _rotations(rng, n)))
+    return F.astype(np.float32)
+
+
+SVD_CASES = [("near_identity", 30000), ("conditioned", 4096), ("identity", 256),
+             ("diag221", 256), ("collapsed", 1000), ("negdet", 1000), ("near_equal", 1000),
+             ("near_identity", 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n", SVD_CASES, ids=[f"{c}-{n}" for c, n in SVD_CASES])
+def test_svd3_kernels_match_plain_bitwise(cuda, case, n):
+    """K6 on the strided views of an (N, 9) buffer and K7 on 21 random
+    cotangents, against the component path on the card: bit for bit,
+    and bit for bit on a second launch (N 30,000, 4,096 and 1,000 are not
+    multiples of the 128-thread block; N = 1 fills one lane)."""
+    from neuma_tpu_torch.ops.svd3 import (run_svd3_bwd, run_svd3_fwd, svd3_bwd_plain,
+                                          svd3_fwd_plain, unpack33)
+
+    F = torch.as_tensor(_svd_matrices(case, n), device=cuda)
+    F9 = unpack33(F)
+    assert F9[1].data_ptr() == F.data_ptr() + 4 and F9[1].stride() == (9,)
+    out = run_svd3_fwd(F9)
+    ref = svd3_fwd_plain(F9)
+    assert torch.equal(_bits(out), _bits(ref)), case
+    assert torch.equal(_bits(out), _bits(run_svd3_fwd(F9)))
+    if case == "collapsed":
+        assert bool((ref[11].abs() < 1e-8).all())
+    if case == "negdet":
+        assert bool((ref[11] < 0).all())
+    cots = list(torch.randn((21, n), generator=torch.Generator().manual_seed(n)).to(cuda))
+    dA = run_svd3_bwd(out, cots)
+    assert torch.equal(_bits(dA), _bits(svd3_bwd_plain(ref, cots))), case
+    assert torch.equal(_bits(dA), _bits(run_svd3_bwd(out, cots)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", ["sigma", "u", "vh", "s0_expanded"])
+def test_svd3_bwd_kernel_none_and_expanded_cotangents(cuda, live):
+    """K7 with None cotangents (counted as zero) and with an expanded
+    (stride 0) one, on F with near-equal singular values (the 1e-10
+    clamp) and on F near the identity, against the plain adjoint."""
+    from neuma_tpu_torch.ops.svd3 import run_svd3_bwd, run_svd3_fwd, svd3_bwd_plain, unpack33
+
+    gen = torch.Generator().manual_seed(7)
+    for case in ("near_equal", "near_identity"):
+        F9 = unpack33(torch.as_tensor(_svd_matrices(case, 3001, seed=2), device=cuda))
+        saved = run_svd3_fwd(F9)
+        rows = {"u": range(9), "sigma": range(9, 12), "vh": range(12, 21), "s0_expanded": (9,)}
+        cots = [None] * 21
+        for k in rows[live]:
+            cots[k] = (torch.ones((), device=cuda).expand(3001) if live == "s0_expanded"
+                       else torch.randn(3001, generator=gen).to(cuda))
+        dA = run_svd3_bwd(saved, cots)
+        assert torch.equal(_bits(dA), _bits(svd3_bwd_plain(saved, cots))), (case, live)
+
+
+@pytest.mark.cuda
+def test_svd3_kernels_through_autograd_and_launch_counts(cuda):
+    """``svd3c`` on CUDA components: one K6 launch a forward and one K7 a
+    backward, counted in ``kernels.launches``; the factors and the input
+    gradient are the plain path's bit for bit (separate component tensors,
+    not views of one buffer); N = 0 launches nothing."""
+    from neuma_tpu_torch import kernels
+    from neuma_tpu_torch.ops.svd3 import svd3_bwd_plain, svd3_fwd_plain, svd3c
+
+    F = torch.as_tensor(_svd_matrices("conditioned", 5000, seed=3), device=cuda)
+    F9 = [F[:, r, c].clone().requires_grad_(True) for r in range(3) for c in range(3)]
+    W = torch.randn((21, 5000), generator=torch.Generator().manual_seed(3)).to(cuda)
+    kernels.reset_launches()
+    u9, s3, vh9 = svd3c(F9)
+    rows = [*u9, *s3, *vh9]
+    sum((f * w).sum() for f, w in zip(rows, W)).backward()
+    assert dict(kernels.launches) == {"svd3": 1, "svd3_bwd": 1}
+    ref = svd3_fwd_plain([f.detach() for f in F9])
+    assert torch.equal(_bits(torch.stack(rows).detach()), _bits(ref))
+    assert torch.equal(_bits(torch.stack([f.grad for f in F9])),
+                       _bits(svd3_bwd_plain(ref, list(W))))
+    kernels.reset_launches()
+    E9 = [torch.zeros(0, device=cuda, requires_grad=True) for _ in range(9)]
+    u9, s3, vh9 = svd3c(E9)
+    sum(f.sum() for f in (*u9, *s3, *vh9)).backward()
+    assert u9[0].shape == (0,) and E9[0].grad.shape == (0,) and not kernels.launches
+
+
+@pytest.mark.cuda
+def test_svd3_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """A float64, mixed-device or mixed-shape CUDA input raises, in the
+    forward and in the adjoint: no fallback to the component path."""
+    from neuma_tpu_torch.ops.svd3 import run_svd3_bwd, run_svd3_fwd, svd3c
+
+    ok = [torch.ones(8, device=cuda) for _ in range(9)]
+    with pytest.raises(ValueError, match="float32"):
+        svd3c([t.double() for t in ok])
+    with pytest.raises(ValueError, match="CUDA"):
+        svd3c(ok[:8] + [torch.ones(8)])
+    with pytest.raises(ValueError, match="shape"):
+        svd3c(ok[:8] + [torch.ones(9, device=cuda)])
+    saved = run_svd3_fwd(ok)
+    with pytest.raises(ValueError, match="shape"):
+        run_svd3_bwd(saved[:20], [None] * 21)
+    with pytest.raises(ValueError, match="float32"):
+        run_svd3_bwd(saved, [torch.ones(8, device=cuda, dtype=torch.float64)] + [None] * 20)
+    with pytest.raises(ValueError, match="shape"):
+        run_svd3_bwd(saved, [torch.ones(7, device=cuda)] + [None] * 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["InvariantFullMetaElasticity", "InvariantFullMetaPlasticity",
+                                  "PolarMetaElasticity", "SVDMetaPlasticity",
+                                  "SplineMetaElasticity", "CorotatedElasticity",
+                                  "VonMisesPlasticity"])
+def test_materials_through_svd3_kernels_match_the_component_path(cuda, name, monkeypatch):
+    """A material's value and F-gradient on the card through K6 and K7
+    against the same material with the component path on the card, bit
+    for bit; one K6 and one K7 launch per value-and-grad."""
+    import importlib
+
+    from neuma_tpu_torch import kernels
+    from test_torch_svd3 import MATERIALS, make_material, near_identity, value_and_grad
+
+    svd3m = importlib.import_module("neuma_tpu_torch.ops.svd3")
+    mat = make_material(name, dict(MATERIALS)[name], device=cuda)
+    F = near_identity(20000, seed=8, scale=0.1).to(cuda)
+    W = torch.randn((20000, 3, 3), generator=torch.Generator().manual_seed(9)).to(cuda)
+    kernels.reset_launches()
+    got = value_and_grad(mat, F, W)
+    assert dict(kernels.launches) == {"svd3": 1, "svd3_bwd": 1}
+    monkeypatch.setattr(svd3m, "_on_card", lambda F9: False)
+    want = value_and_grad(mat, F, W)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want)), name

@@ -106,6 +106,52 @@ def test_float_atomic_detector_catches_one():
     assert not _float_atomics("__global__ void k(int* n) { atomicAdd(n, 1); }")
 
 
+KERNEL_SOURCES = sorted((PORT / "csrc").glob("*.cu"))
+
+
+def _entry_points(src):
+    """The names and parameter counts of a CUDA source's ``extern "C"``
+    functions."""
+    return {m.group(1): len([a for a in m.group(2).split(",") if a.strip()])
+            for m in re.finditer(r'extern "C"\s+\w+\s+(\w+)\s*\(([^)]*)\)', src)}
+
+
+@pytest.mark.parametrize("path", KERNEL_SOURCES, ids=lambda p: p.name)
+def test_kernel_entry_points_have_signatures(path):
+    """Each C entry point is in ``kernels._SIGNATURES`` with as many
+    argument types as it has parameters (ctypes would otherwise pass a
+    pointer as a 32-bit int)."""
+    from neuma_tpu_torch import kernels
+
+    found = _entry_points(path.read_text())
+    assert found, path.name
+    assert {k: len(kernels._SIGNATURES.get(k, ())) for k in found} == found, path.name
+
+
+def test_every_signature_names_an_entry_point():
+    from neuma_tpu_torch import kernels
+
+    defined = {}
+    for path in KERNEL_SOURCES:
+        defined.update(_entry_points(path.read_text()))
+    assert set(kernels._SIGNATURES) == set(defined)
+
+
+def test_kernels_build_without_fast_math():
+    """No fast math and no flush-to-zero: K6 and K7 agree bit for bit with
+    eager PyTorch, whose float arithmetic keeps denormals (the Jacobi's
+    1e-38 is one), and they call only correctly rounded operations."""
+    from neuma_tpu_torch import kernels
+
+    flags = " ".join(kernels._ARCH + kernels._FLAGS)
+    assert "fast_math" not in flags and "ftz" not in flags and "fmad" not in flags
+    src = (PORT / "csrc" / "svd3.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    assert not re.search(r"__f\w*_r[zud]\b|__fdividef|__expf|rsqrtf|__frsqrt|\bsqrtf\b", code)
+    for op in ("__fmul_rn", "__fadd_rn", "__fsub_rn", "__fdiv_rn", "__fsqrt_rn"):
+        assert op in code, op
+
+
 def test_modules_name_their_jax_counterpart():
     checked = set()
     for path in PORT.rglob("*.py"):
