@@ -7,8 +7,10 @@ both are found by name, ``configs/<config>.json`` and
 ``program.py``. With ``--trace 0`` the line carries the cell's end-to-end
 metrics; with ``--trace 1`` its per-layer metrics, each read by
 ``metrics/<metric>.py`` (a module with ``read(ctx)`` that returns a number
-or None when it finds nothing to read). The limits of the check are
-``limits/<cell>.json``.
+or None when it finds nothing to read) from the stretch that
+``spantrace.SpanTracer`` traced after the window and charged to the
+port's spans. The limits of the check are ``limits/<cell>.json``. Every
+line records the host beside the card (``host.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import argparse
 import gc
 import importlib.util
 import json
+import os
 import random
 import subprocess
 import sys
@@ -26,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import check, devtrace, inputs, program, reference, roofline
+from . import check, host, inputs, program, reference, roofline, spantrace
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "neuma_tpu"}
@@ -105,22 +108,26 @@ def run(cell: str, seed: int, seconds: float, trace: bool, device, t0: float,
     marks["inputs"] = time.perf_counter()
     scene = program.build_scene(cfg, raw, device)
     marks["scene"] = time.perf_counter()
-    tracer = devtrace.Tracer(device, kernels.launches) if trace else None
+    tracer = spantrace.SpanTracer(device, kernels.launches) if trace else None
+    record = host.Record(device)
 
     def on_window():
+        record.start()
         gc.collect()
         gc.freeze()
         gc.disable()
         marks["window"] = time.perf_counter()
 
     if kind == "train":
-        win = program.train(cfg, traffic, raw, scene, seconds, tracer, device, on_window)
+        win = program.train(cfg, traffic, raw, scene, seconds, tracer, device, on_window,
+                            record.stop)
     else:
         # the rollout's first frame (the start), and frames drawn from the seed
         rng = random.Random(seed)
         sample = [0] + sorted(rng.sample(range(1, int(traffic["checked_range"])),
                                          int(traffic["checked_frames"]) - 1))
-        win = program.serve(cfg, traffic, raw, scene, seconds, tracer, device, on_window, sample)
+        win = program.serve(cfg, traffic, raw, scene, seconds, tracer, device, on_window, sample,
+                            record.stop)
     setup_s = marks["window"] - t0
     print("setup_s {:.3f}: imports {:.3f}, inputs {:.3f}, scene {:.3f}, warm-up {:.3f}".format(
         setup_s, marks["import"] - t0, marks["inputs"] - marks["import"],
@@ -131,7 +138,7 @@ def run(cell: str, seed: int, seconds: float, trace: bool, device, t0: float,
           "first {}; last {}; load {}".format(
               len(lat), win.ends[-1] - win.t_start, *q,
               [round(1e3 * x, 1) for x in lat[:5]], [round(1e3 * x, 1) for x in lat[-5:]],
-              [round(x, 2) for x in __import__("os").getloadavg()]), file=sys.stderr)
+              [round(x, 2) for x in os.getloadavg()]), file=sys.stderr)
     loaded = forbidden_modules()
     del scene
     gc.collect()
@@ -153,8 +160,13 @@ def run(cell: str, seed: int, seconds: float, trace: bool, device, t0: float,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "count": int(work["chips"]), "memory_peak_bytes": int(win.peak_bytes)}
     if not trace:
+        # the cell's end-to-end metrics as BENCHMARK.json lists them; what it
+        # lists per layer only (a window's frame time on a drifting host) is
+        # left to the traced run's readers
+        listed = {m["name"] for m in manifest["end_to_end"] if cell in m.get("workloads", [cell])}
         for name, (value, unit) in end_to_end(kind, win, setup_s).items():
-            metrics[name] = {"value": value, "unit": unit}
+            if name in listed:
+                metrics[name] = {"value": value, "unit": unit}
     else:
         tr = win.traced
         ctx = types.SimpleNamespace(
@@ -169,8 +181,10 @@ def run(cell: str, seed: int, seconds: float, trace: bool, device, t0: float,
             if value is not None:
                 metrics[entry["name"]] = {"value": value, "unit": entry["unit"]}
         dev.update(busy_s=tr["busy_s"], window_s=tr["window_s"])
-        result["breakdown"] = {"device_ops": tr["device_ops"], "idle_gaps": tr["idle_gaps"]}
+        result["breakdown"] = {"device_ops": tr["device_ops"], "idle_gaps": tr["idle_gaps"],
+                               "idle_by_span": tr["idle_by_span"]}
     dev["power"] = power_limit() if device.type == "cuda" else "cpu"
+    dev["host"] = record.line()
     result["device"] = dev
     result["checks"] = {name: {"value": value, "limit": lim} for name, value, lim in rows}
     return result

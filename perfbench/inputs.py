@@ -2,14 +2,29 @@
 
 One configuration file (``configs/<name>.json``) gives the sizes; this
 module draws everything else from the seed with one ``torch.Generator``
-on the run's device, in a few large calls: the particles and the
-Gaussians filling the object's ellipsoid, the Gaussians' raw parameters,
-both materials' base MLP weights and LoRA leaves, the initial velocity
-and, for training, the ground-truth frames. The same seed gives the same
-inputs on the same kind of device. The cameras are fixed by the
-configuration. Both the port (``program.py``) and the plain reference
-(``reference.py``) are handed these tensors and derive the rest
+on the run's device, in a few large calls: for each object, the particles
+and the Gaussians filling its ellipsoid, the Gaussians' raw parameters,
+both materials' base MLP weights and LoRA leaves and its initial
+velocity; then, for training, the ground-truth frames. The same seed
+gives the same inputs on the same kind of device. The cameras are fixed
+by the configuration. Both the port (``program.py``) and the plain
+reference (``reference.py``) are handed these tensors and derive the rest
 themselves.
+
+A configuration holds one object in its top-level keys (``scene``'s
+ellipsoid, particles, Gaussians and their looks, ``rho``,
+``clip_bound``, ``materials``), or several in ``objects``, one particle
+system in the one box of ``scene`` (``sim_scale``, ``sim_offset``, the
+cameras' ``target``). Each object of ``objects`` gives ``particles``,
+``gaussians``, ``object_center``, ``object_radii``, ``gaussian_scale``,
+``opacity_range``, ``sh_rest_std``, ``init_v_range``, ``rho``,
+``clip_bound`` and its material section, ``materials``: ``mu``,
+``lambda``, ``lora_r``, ``lora_alpha``, ``plasticity_alpha`` and
+``lora_b_std``, which replaces the traffic's adaptor scale for it; the
+widths and the nonlinearity stay in the top-level ``materials``. The
+objects are drawn in order, and their particles and Gaussians lie in
+contiguous sections in that order. A configuration of one object draws
+the same tensors, in the same order, as it did before ``objects`` existed.
 """
 from __future__ import annotations
 
@@ -35,7 +50,8 @@ def look_at(eye, target, up):
 
 def cameras(cfg: dict) -> list:
     """The configuration's views: each ``R_w2c``, ``t``, fields of view and size."""
-    target = np.asarray(cfg["scene"]["object_center"], np.float64)
+    sc = cfg["scene"]
+    target = np.asarray(sc["target"] if "target" in sc else sc["object_center"], np.float64)
     out = []
     for view in cfg["views"]:
         r, t = look_at(target + np.asarray(view["eye_offset"]), target, view["up"])
@@ -106,51 +122,54 @@ def _mlp_layers(gen, dims, m: dict, b_std: float, elastic: bool, device) -> list
     return layers
 
 
+def objects(cfg: dict) -> list:
+    """Each object's settings, in order: ``objects``, or the one object of
+    the top-level keys."""
+    if "objects" in cfg:
+        shared = cfg["materials"]
+        return [dict(o, materials={**shared, **o["materials"]}) for o in cfg["objects"]]
+    sc = cfg["scene"]
+    keys = ("particles", "gaussians", "object_center", "object_radii", "gaussian_scale",
+            "opacity_range", "sh_rest_std", "init_v_range")
+    return [dict({k: sc[k] for k in keys}, rho=cfg["rho"], clip_bound=cfg["clip_bound"],
+                 materials=cfg["materials"])]
+
+
+def _join(parts: list) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def make(cfg: dict, seed: int, device, with_gt: bool, lora_b_std: float = 0.0) -> dict:
     """Every input of one run from ``seed``; ``lora_b_std`` is the traffic's
-    adaptor (0: stage 2's start)."""
+    adaptor (0: stage 2's start). ``objects`` holds each object's counts,
+    materials, plasticity ``alpha``, ``clip_bound`` and ``init_v``; the
+    particles' and Gaussians' tensors are joined over the objects, and
+    ``materials`` and ``init_v`` are the first object's."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     sc = cfg["scene"]
-    n, k = int(sc["particles"]), int(sc["gaussians"])
-    radii = np.asarray(sc["object_radii"], np.float64)
-    volume = 4.0 / 3.0 * math.pi * float(np.prod(radii))  # world units
-    pts = _ellipsoid(gen, n + k, sc["object_center"], radii, device)
     size, center = float(sc["sim_scale"]), np.asarray(sc["sim_offset"], np.float32)
-    x0 = (pts[:n] * size + torch.as_tensor(center, device=device)).contiguous()
-
-    spacing = (volume / k) ** (1.0 / 3.0)
-    u = torch.rand((k, 9), generator=gen, device=device)
-    lo, hi = sc["opacity_range"]
-    opacity = lo + (hi - lo) * u[:, 6:7]
     deg = int(cfg["sh_degree"])
-    n_rest = (deg + 1) ** 2 - 1
-    gaussians = {
-        "xyz": pts[n:].contiguous(),
-        "scaling": torch.log(spacing * float(sc["gaussian_scale"]) * (0.7 + 0.6 * u[:, :3])),
-        "rotation": torch.randn((k, 4), generator=gen, device=device),
-        "opacity": torch.log(opacity / (1.0 - opacity)),
-        "features_dc": ((u[:, 3:6] - 0.5) / SH_C0)[:, None, :].contiguous(),
-        "features_rest": float(sc["sh_rest_std"]) * torch.randn((k, n_rest, 3), generator=gen,
-                                                                 device=device),
-    }
+    several = "objects" in cfg
+    parts = {key: [] for key in ("x0", "vol", "rho", "xyz", "scaling", "rotation", "opacity",
+                                 "features_dc", "features_rest")}
+    objs = []
+    for spec in objects(cfg):
+        m = spec["materials"]
+        std = float(m["lora_b_std"]) if several else lora_b_std
+        obj = _object(gen, spec, size, center, deg, std, device)
+        for key in parts:
+            parts[key].append(obj.pop(key))
+        obj.update(alpha=float(m["plasticity_alpha"]), clip_bound=float(spec["clip_bound"]))
+        objs.append(obj)
 
-    m = cfg["materials"]
-    dims = [13, *m["layer_widths"], 9]
-    mats = {name: _mlp_layers(gen, dims, m, lora_b_std, name == "elasticity", device)
-            for name in ("elasticity", "plasticity")}
-
-    v_lo, v_hi = (torch.as_tensor(b, dtype=torch.float32, device=device) for b in sc["init_v_range"])
-    init_v = v_lo + (v_hi - v_lo) * torch.rand((3,), generator=gen, device=device)
-
-    sim_vol = volume * size ** 3 / n
     raw = {
-        "x0": x0,
-        "vol": torch.full((n,), sim_vol, dtype=torch.float32, device=device),
-        "rho": torch.full((n,), float(cfg["rho"]), dtype=torch.float32, device=device),
+        "x0": _join(parts["x0"]), "vol": _join(parts["vol"]), "rho": _join(parts["rho"]),
         "size": np.full(3, size, np.float32), "center": center,
-        "gaussians": gaussians, "materials": mats, "init_v": init_v,
-        "cameras": cameras(cfg),
+        "gaussians": {k: _join(parts[k]) for k in ("xyz", "scaling", "rotation", "opacity",
+                                                    "features_dc", "features_rest")},
+        "materials": objs[0]["materials"], "init_v": objs[0]["init_v"],
+        "cameras": cameras(cfg), "objects": objs,
     }
     if with_gt:
         views = raw["cameras"]
@@ -158,3 +177,46 @@ def make(cfg: dict, seed: int, device, with_gt: bool, lora_b_std: float = 0.0) -
         raw["gt"] = torch.rand((int(cfg["train"]["num_frames"]), len(views), 3, h, w), generator=gen,
                                device=device)
     return raw
+
+
+def _object(gen, spec: dict, size: float, center, deg: int, lora_b_std: float, device) -> dict:
+    """One object's draws, in the order of the generator."""
+    n, k = int(spec["particles"]), int(spec["gaussians"])
+    radii = np.asarray(spec["object_radii"], np.float64)
+    volume = 4.0 / 3.0 * math.pi * float(np.prod(radii))  # world units
+    pts = _ellipsoid(gen, n + k, spec["object_center"], radii, device)
+    x0 = (pts[:n] * size + torch.as_tensor(center, device=device)).contiguous()
+
+    spacing = (volume / k) ** (1.0 / 3.0)
+    u = torch.rand((k, 9), generator=gen, device=device)
+    lo, hi = spec["opacity_range"]
+    opacity = lo + (hi - lo) * u[:, 6:7]
+    n_rest = (deg + 1) ** 2 - 1
+    out = {
+        "particles": n, "gaussians": k, "x0": x0,
+        "xyz": pts[n:].contiguous(),
+        "scaling": torch.log(spacing * float(spec["gaussian_scale"]) * (0.7 + 0.6 * u[:, :3])),
+        "rotation": torch.randn((k, 4), generator=gen, device=device),
+        "opacity": torch.log(opacity / (1.0 - opacity)),
+        "features_dc": ((u[:, 3:6] - 0.5) / SH_C0)[:, None, :].contiguous(),
+        "features_rest": float(spec["sh_rest_std"]) * torch.randn((k, n_rest, 3), generator=gen,
+                                                                   device=device),
+    }
+
+    m = spec["materials"]
+    dims = [13, *m["layer_widths"], 9]
+    out["materials"] = {name: _mlp_layers(gen, dims, m, lora_b_std, name == "elasticity", device)
+                        for name in ("elasticity", "plasticity")}
+
+    v_lo, v_hi = (torch.as_tensor(b, dtype=torch.float32, device=device) for b in spec["init_v_range"])
+    out["init_v"] = v_lo + (v_hi - v_lo) * torch.rand((3,), generator=gen, device=device)
+
+    sim_vol = volume * size ** 3 / n
+    out["vol"] = torch.full((n,), sim_vol, dtype=torch.float32, device=device)
+    out["rho"] = torch.full((n,), float(spec["rho"]), dtype=torch.float32, device=device)
+    return out
+
+
+def per_particle(raw: dict, key: str, device) -> torch.Tensor:
+    """An object setting (``clip_bound``) over every particle."""
+    return _join([torch.full((o["particles"],), o[key], device=device) for o in raw["objects"]])

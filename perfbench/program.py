@@ -12,6 +12,14 @@ without blocking into a pinned host buffer made in set-up; one
 synchronize ends the frame. The float-to-uint8 conversion, the PNG
 encoding and the video are host-only and stay out of the window.
 
+A configuration of several objects (``inputs.py``) is one particle
+system whose materials are the port's ``ComposeMaterial`` of each
+object's InvariantFull pair, routed by the objects' particle counts, with
+a binding table per object; ``serve`` then follows the frame of
+``apps/inference.py::_rollout``: each object bound on its own, the
+objects joined once, then every view rendered. Stage 2 fine-tunes one
+object at a time, so ``train`` takes one object only.
+
 Both runners return what the check (``check.py``) compares and what the
 metric readers (``metrics/``) read; neither writes to disk.
 """
@@ -44,8 +52,11 @@ def _tree(layers) -> dict:
 
 def build_scene(cfg: dict, raw: dict, device):
     """The port's ``GroundingScene`` for the configuration; the binding
-    table and the camera matrices are the port's own."""
+    tables and the camera matrices are the port's own. With several
+    objects the materials are ``ComposeMaterial``s and ``binding`` holds
+    one table per object."""
     from neuma_tpu_torch.core.types import MPMConstants, Statics
+    from neuma_tpu_torch.materials.compose import ComposeMaterial
     from neuma_tpu_torch.materials.meta import (
         InvariantFullMetaElasticity,
         InvariantFullMetaPlasticity,
@@ -57,6 +68,8 @@ def build_scene(cfg: dict, raw: dict, device):
     from neuma_tpu_torch.render.rasterize import RasterConfig
     from neuma_tpu_torch.train.grounding import GroundingScene
 
+    from .inputs import per_particle
+
     sim, m = cfg["sim"], cfg["materials"]
     f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=device)
     constants = MPMConstants(num_grids=int(sim["num_grids"]), bound=int(sim["bound"]),
@@ -64,13 +77,21 @@ def build_scene(cfg: dict, raw: dict, device):
                              eps=f32(sim["eps"]))
     n = raw["x0"].shape[0]
     statics = Statics(vol=raw["vol"].clone(), rho=raw["rho"].clone(),
-                      clip_bound=torch.full((n,), float(cfg["clip_bound"]), device=device),
+                      clip_bound=per_particle(raw, "clip_bound", device),
                       enabled=torch.ones(n, dtype=torch.int32, device=device))
-    mat_cfg = MetaMaterialConfig(layer_widths=tuple(m["layer_widths"]), norm=None,
-                                 nonlinearity=m["nonlinearity"], no_bias=True,
-                                 normalize_input=True, alpha=float(m["plasticity_alpha"]))
-    elasticity = InvariantFullMetaElasticity(mat_cfg, _tree(raw["materials"]["elasticity"]))
-    plasticity = InvariantFullMetaPlasticity(mat_cfg, _tree(raw["materials"]["plasticity"]))
+    pairs = []
+    for obj in raw["objects"]:
+        mat_cfg = MetaMaterialConfig(layer_widths=tuple(m["layer_widths"]), norm=None,
+                                     nonlinearity=m["nonlinearity"], no_bias=True,
+                                     normalize_input=True, alpha=obj["alpha"])
+        pairs.append((InvariantFullMetaElasticity(mat_cfg, _tree(obj["materials"]["elasticity"])),
+                      InvariantFullMetaPlasticity(mat_cfg, _tree(obj["materials"]["plasticity"]))))
+    if len(pairs) == 1:
+        elasticity, plasticity = pairs[0]
+    else:
+        sections = [obj["particles"] for obj in raw["objects"]]
+        elasticity = ComposeMaterial([e for e, _ in pairs], sections)
+        plasticity = ComposeMaterial([p for _, p in pairs], sections)
     g = raw["gaussians"]
     gaussians = GaussianPack(
         xyz=g["xyz"].clone(), features_dc=g["features_dc"].clone(),
@@ -79,7 +100,15 @@ def build_scene(cfg: dict, raw: dict, device):
     size, center = raw["size"], raw["center"]
     de_x0 = (raw["x0"] - f32(center)) / f32(size)
     with torch.no_grad():
-        table = compute_binding_table(gaussians, de_x0)
+        if len(pairs) == 1:
+            table = compute_binding_table(gaussians, de_x0)
+        else:  # each object's Gaussians bound to its own particles
+            table = []
+            for ps, gs in sections_of(raw):
+                pack = GaussianPack(**{f: getattr(gaussians, f)[gs] for f in (
+                    "xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")},
+                    sh_degree=gaussians.sh_degree)
+                table.append(compute_binding_table(pack, de_x0[ps]))
     cams = [Camera.from_Rt(np.asarray(c["R_w2c"]).T, np.asarray(c["t"]), c["fov_x"], c["fov_y"],
                            c["width"], c["height"], device=device) for c in raw["cameras"]]
     r = cfg["raster"]
@@ -93,6 +122,16 @@ def build_scene(cfg: dict, raw: dict, device):
                                 segment=int(r["segment"])),
         remat=cfg["remat"],
     )
+
+
+def sections_of(raw: dict) -> list:
+    """Each object's (particle slice, Gaussian slice)."""
+    out, p0, g0 = [], 0, 0
+    for obj in raw["objects"]:
+        p1, g1 = p0 + obj["particles"], g0 + obj["gaussians"]
+        out.append((slice(p0, p1), slice(g0, g1)))
+        p0, g0 = p1, g1
+    return out
 
 
 def lora_leaves(scene) -> dict:
@@ -125,13 +164,17 @@ class Window:
 
 
 def train(cfg: dict, traffic: dict, raw: dict, scene, seconds: float, tracer, device,
-          on_window: Callable[[], None]) -> Window:
+          on_window: Callable[[], None], on_close: Callable[[], None] = lambda: None) -> Window:
     """Stage 2 in one call of ``finetune_constitutive``: its first
     ``checked_steps`` epochs are set-up (the reference follows them), the
     window's epochs run until ``seconds`` have passed, and with a tracer
-    one more epoch is profiled."""
+    one more epoch is profiled. ``on_window`` runs as the window opens,
+    ``on_close`` as it closes."""
     from neuma_tpu_torch.train import grounding
 
+    if len(raw["objects"]) > 1:
+        raise ValueError(f"stage 2 fine-tunes one object at a time; the configuration has "
+                         f"{len(raw['objects'])} objects")
     checked = int(traffic["checked_steps"])
     frames = int(cfg["train"]["num_frames"])
     win = Window(frames_per_unit=frames)
@@ -157,6 +200,7 @@ def train(cfg: dict, traffic: dict, raw: dict, scene, seconds: float, tracer, de
         win.ends.append(now)
         if now - win.t_start < seconds:
             return
+        on_close()
         if device.type == "cuda":
             win.peak_bytes = torch.cuda.max_memory_allocated(device)
         if tracer is None:
@@ -208,11 +252,13 @@ def train(cfg: dict, traffic: dict, raw: dict, scene, seconds: float, tracer, de
 
 
 def serve(cfg: dict, traffic: dict, raw: dict, scene, seconds: float, tracer, device,
-          on_window: Callable[[], None], sample: list) -> Window:
+          on_window: Callable[[], None], sample: list,
+          on_close: Callable[[], None] = lambda: None) -> Window:
     """The render CLI's rollout, frame by frame, back to back rollouts of
     ``rollout_steps`` from the initial state. Frames whose index is in
     ``sample`` keep their state before and after and their images; so
-    does the window's last frame."""
+    does the window's last frame. ``on_window`` runs as the window opens,
+    ``on_close`` as it closes."""
     from neuma_tpu_torch.core.types import ParticleState
     from neuma_tpu_torch.render.binding import (
         apply_binding_F,
@@ -234,7 +280,24 @@ def serve(cfg: dict, traffic: dict, raw: dict, scene, seconds: float, tracer, de
     h, w = cams[0].height, cams[0].width
     steps = int(traffic["rollout_steps"])
     n = scene.init_x.shape[0]
-    v0 = raw["init_v"].reshape(-1, 3).expand(n, 3).contiguous()
+    if len(raw["objects"]) == 1:
+        v0 = raw["init_v"].reshape(-1, 3).expand(n, 3).contiguous()
+
+        def bind(de_x, de_x_prev, g_prev, F):
+            means3d = apply_binding_xyz(scene.binding, de_x, de_x_prev, g_prev)
+            return means3d, deform_cov_by_F(cov0, apply_binding_F(scene.binding, F))
+    else:
+        v0 = torch.cat([o["init_v"].reshape(1, 3).expand(o["particles"], 3)
+                        for o in raw["objects"]])
+        sections = list(zip(scene.binding, sections_of(raw)))
+
+        def bind(de_x, de_x_prev, g_prev, F):
+            """Each object bound on its own, then joined once."""
+            means, covs = [], []
+            for table, (ps, gs) in sections:
+                means.append(apply_binding_xyz(table, de_x[ps], de_x_prev[ps], g_prev[gs]))
+                covs.append(deform_cov_by_F(cov0[gs], apply_binding_F(table, F[ps])))
+            return torch.cat(means), torch.cat(covs)
     de_x0 = denormalize_points(scene.init_x, scene.size, scene.center)
     xyz0 = scene.gaussians.xyz
     # the window's images: two ring slots, one for the traced stretch,
@@ -273,8 +336,7 @@ def serve(cfg: dict, traffic: dict, raw: dict, scene, seconds: float, tracer, de
                 t1 = time.perf_counter()
                 spans["sim"] += t1 - t0
             de_x = denormalize_points(s.x, scene.size, scene.center)
-            means3d = apply_binding_xyz(scene.binding, de_x, self.de_x_prev, self.g_prev)
-            cov_def = deform_cov_by_F(cov0, apply_binding_F(scene.binding, s.F))
+            means3d, cov_def = bind(de_x, self.de_x_prev, self.g_prev, s.F)
             flags = []
             for v, cam in enumerate(cams):
                 img, aux = rasterize_with_aux(means3d, cov_def, opacity, cam, scene.background,
@@ -313,6 +375,7 @@ def serve(cfg: dict, traffic: dict, raw: dict, scene, seconds: float, tracer, de
                                  images=slot_of.get(last, last % 2))
         if now - win.t_start >= seconds:
             break
+    on_close()
     gc.enable()
     if device.type == "cuda":
         win.peak_bytes = torch.cuda.max_memory_allocated(device)

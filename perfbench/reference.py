@@ -14,14 +14,16 @@ device its inputs live on:
   SVD (singular values sorted descending, det U = det V = +1, the sign
   folded into sigma[2]) whose backward is the closed-form adjoint with
   the ``sign(d) / max(|d|, 1e-10)`` clamp on near-equal squared singular
-  values: NeuMA's published material and its conventions;
+  values: NeuMA's published material and its conventions; with several
+  objects each object's pair on its own contiguous section of the
+  particles;
 * one MLS-MPM step on the dense grid (quadratic B-splines, APIC, taps off
   the grid folded onto its edge, ``noslip`` / ``freeslip`` box, the
   advection clamp), scattered with ``index_add_``;
 * the particle -> Gaussian binding (chi-square 0.95 Mahalanobis field,
-  the 10 nearest particles, uniform weights), the incremental centre
-  update and F Sigma F^T with the stop-gradients of the published
-  method;
+  the 10 nearest particles, uniform weights; each object's Gaussians to
+  its own particles), the incremental centre update and F Sigma F^T with
+  the stop-gradients of the published method;
 * 3DGS rasterization: EWA projection (the 1.3 tan-fov clamp, the +0.3
   low-pass), SH colours, 16x16 tiles, front-to-back compositing per
   pixel with the CUDA rasterizer's guards (alpha >= 1/255, alpha capped
@@ -242,13 +244,22 @@ def mpm_step(sim: dict, state, stress):
     return new_x, new_v, new_c, new_f
 
 
-def substep(sim: dict, mats: dict, state):
-    """elasticity -> MPM step -> plasticity, with the published method's
-    NaN/Inf scrub of every cotangent the step passes back."""
+def by_section(mats: list, f: torch.Tensor, fn) -> torch.Tensor:
+    """``fn(section, F)`` on each material section's contiguous slice of
+    particles, joined."""
+    if len(mats) == 1:
+        return fn(mats[0], f)
+    return torch.cat([fn(m, f[m["span"][0]:m["span"][1]]) for m in mats])
+
+
+def substep(sim: dict, mats: list, state):
+    """elasticity -> MPM step -> plasticity, each material on its own
+    section, with the published method's NaN/Inf scrub of every cotangent
+    the step passes back."""
     state = tuple(_scrub(t) for t in state)
-    stress = _scrub(elasticity(mats["elasticity"], state[3]))
+    stress = _scrub(by_section(mats, state[3], lambda m, f: elasticity(m["elasticity"], f)))
     x, v, c, f = mpm_step(sim, state, stress)
-    return x, v, c, plasticity(mats["plasticity"], f, mats["alpha"])
+    return x, v, c, by_section(mats, f, lambda m, f: plasticity(m["plasticity"], f, m["alpha"]))
 
 
 # --- Gaussians, binding, cameras ------------------------------------------------------
@@ -499,30 +510,39 @@ def colors_for(scene: dict, means, cam) -> torch.Tensor:
 
 def build(raw: dict, cfg: dict) -> dict:
     """The reference's scene from the benchmark's raw inputs: every table
-    the port derives is derived here again."""
+    the port derives is derived here again. Each object is bound to its
+    own particles; its material section is its slice of them."""
     dev = raw["x0"].device
     sim = dict(cfg["sim"])
-    n = raw["x0"].shape[0]
-    sim.update(vol=raw["vol"], rho=raw["rho"], clip_bound=torch.full((n,), float(cfg["clip_bound"]),
-                                                                     device=dev))
+    clip = [torch.full((o["particles"],), float(o["clip_bound"]), device=dev) for o in raw["objects"]]
+    sim.update(vol=raw["vol"], rho=raw["rho"], clip_bound=torch.cat(clip))
     g = raw["gaussians"]
     cov0 = covariance(g["scaling"], g["rotation"])
     size = torch.as_tensor(np.asarray(raw["size"], np.float32), device=dev)
     center = torch.as_tensor(np.asarray(raw["center"], np.float32), device=dev)
     de_x0 = (raw["x0"] - center) / size
-    idx, w = binding_table(g["xyz"], cov0, de_x0)
+    idx, w, sections, p0, g0 = [], [], [], 0, 0
+    for o in raw["objects"]:
+        p1, g1 = p0 + o["particles"], g0 + o["gaussians"]
+        i, wt = binding_table(g["xyz"][g0:g1], cov0[g0:g1], de_x0[p0:p1])
+        idx.append(i + p0)
+        w.append(wt)
+        sections.append({"span": (p0, p1), "alpha": o["alpha"]})
+        p0, g0 = p1, g1
     return {
-        "sim": sim, "size": size, "center": center, "cov0": cov0, "bind_idx": idx, "bind_w": w,
+        "sim": sim, "size": size, "center": center, "cov0": cov0, "bind_idx": torch.cat(idx),
+        "bind_w": torch.cat(w), "sections": sections,
         "xyz0": g["xyz"], "opacity": torch.sigmoid(g["opacity"]).reshape(-1),
         "shs": torch.cat([g["features_dc"], g["features_rest"]], 1), "sh_degree": int(cfg["sh_degree"]),
         "cams": [camera(c, dev) for c in raw["cameras"]],
         "background": torch.as_tensor(cfg["background"], dtype=torch.float32, device=dev),
-        "alpha": float(cfg["materials"]["plasticity_alpha"]),
     }
 
 
-def materials(raw_mats: dict, alpha: float) -> dict:
-    return {"elasticity": raw_mats["elasticity"], "plasticity": raw_mats["plasticity"], "alpha": alpha}
+def materials(ref: dict, layers: list) -> list:
+    """The material sections: ``layers`` holds each object's
+    ``{"elasticity": ..., "plasticity": ...}`` MLP layers."""
+    return [dict(sec, **lay) for sec, lay in zip(ref["sections"], layers)]
 
 
 def bind(ref: dict, x, f, de_x_prev, g_prev):
@@ -654,10 +674,9 @@ def train(raw: dict, cfg: dict, steps: int, tf32: bool = False) -> dict:
             for name, leaf in zip(names, leaves):
                 mat, layer, key = name.split(".")
                 mats[mat][int(layer)][key] = leaf
-            mats["alpha"] = ref["alpha"]
             weights = decay_weights(tcfg, epoch, gt.shape[0]).to(gt.device)
-            loss, _ = rollout_loss(ref, mats, raw["init_v"], gt, weights, int(cfg["sim"]["substeps"]),
-                                   cfg["pixel_loss"])
+            loss, _ = rollout_loss(ref, materials(ref, [mats]), raw["init_v"], gt, weights,
+                                   int(cfg["sim"]["substeps"]), cfg["pixel_loss"])
             grads = list(torch.autograd.grad(loss, leaves))
             losses.append(float(loss.detach()))
             clipped = []
@@ -689,7 +708,7 @@ def frame_step(raw: dict, cfg: dict, pre: dict, tf32: bool = False, ref: Optiona
     ``pre``). Returns the stepped state and the images."""
     with precision(tf32), torch.no_grad():
         ref = ref or build(raw, cfg)
-        mats = materials(raw["materials"], ref["alpha"])
+        mats = materials(ref, [o["materials"] for o in raw["objects"]])
         state = substep(ref["sim"], mats, (pre["x"], pre["v"], pre["C"], pre["F"]))
         post = pre["post"]
         _, means, cov = bind(ref, post["x"], post["F"], pre["de_x_prev"], pre["g_prev"])
@@ -702,7 +721,7 @@ def serve_pairs(raw: dict, cfg: dict, start: dict, frames: int) -> List[List[int
     program's state ``start``."""
     with precision(False), torch.no_grad():
         ref = build(raw, cfg)
-        mats = materials(raw["materials"], ref["alpha"])
+        mats = materials(ref, [o["materials"] for o in raw["objects"]])
         state = (start["x"], start["v"], start["C"], start["F"])
         de_prev, g_prev = start["de_x_prev"], start["g_prev"]
         out = []
@@ -728,7 +747,7 @@ def train_pairs(raw: dict, cfg: dict, leaves: Dict[str, torch.Tensor]) -> List[L
         for name, leaf in leaves.items():
             mat, layer, key = name.split(".")
             mats[mat][int(layer)][key] = leaf
-        mats["alpha"] = ref["alpha"]
+        mats = materials(ref, [mats])
         x = raw["x0"]
         n = x.shape[0]
         state = (x, raw["init_v"].reshape(-1, 3).expand(n, 3).contiguous(),

@@ -33,6 +33,9 @@ def manifest():
     m = harness.load_json(harness.HERE.parent / "BENCHMARK.json")
     m["workloads"].append({"name": "bouncyball.train", "config": "bouncyball", "traffic": "train",
                            "chips": 1, "why": "tests only"})
+    for e in m["end_to_end"]:
+        if "bun.train" in e.get("workloads", []):
+            e["workloads"].append("bouncyball.train")
     return m
 
 
@@ -67,7 +70,8 @@ def test_cell_matches_reference(cell):
     assert res["attempted"] >= 1 and res["failed"] == 0
     names = set(res["metrics"])
     assert "setup_s" in names
-    assert names & {"train_frame_ms", "serve_frame_ms"}
+    assert names == ({"train_peak_gib", "setup_s"} if cell.endswith("train")
+                     else {"serve_frame_ms", "serve_frame_p95_ms", "setup_s"})
     assert all(m["value"] >= 0 for m in res["metrics"].values())
 
 
@@ -79,7 +83,7 @@ def test_traced_serve_reads_its_layers():
         res["metrics"])
     assert not set(res["metrics"]) & {"serve_frame_ms", "idle_share.train"}
     assert {"busy_s", "window_s"} <= set(res["device"])
-    assert set(res["breakdown"]) == {"device_ops", "idle_gaps"}
+    assert set(res["breakdown"]) == {"device_ops", "idle_gaps", "idle_by_span"}
 
 
 @pytest.mark.parametrize("cell,what", [
